@@ -1,0 +1,55 @@
+"""Behavior protocol: the contract every material model implements.
+
+A behavior maps a dict of differentiable inputs (gradients + external state
+variables) to a dict of fluxes plus a new internal-state dict, and declares
+its signature (gradient, flux and state sizes). A behavior may also supply a
+whole-batch ``batched_update(eps (n,6), state, dt) -> (sig, Ct (n,36),
+state)`` with an analytic tangent; :class:`~..material.Material` uses it.
+"""
+
+from __future__ import annotations
+
+
+class Behavior:
+    """Base class. Subclasses declare I/O signatures and the per-point update."""
+
+    #: name -> number of (flattened) components of each gradient-like input
+    gradients: dict = {}
+    #: name -> number of components of each flux (thermodynamic force)
+    fluxes: dict = {}
+    #: name -> number of components of external state variables consumed
+    external_state_variables: dict = {}
+    #: extra tangent blocks (y_name, x_name) beyond flux x gradient
+    extra_tangent_blocks: list = []
+
+    def init_state(self) -> dict:
+        """Per-point internal-state template: dict of numpy arrays."""
+        return {}
+
+    @property
+    def tangent_blocks(self) -> list:
+        """All (y, x) consistent-tangent blocks, default flux x gradient."""
+        blocks = [(f, g) for f in self.fluxes for g in self.gradients]
+        return blocks + list(self.extra_tangent_blocks)
+
+    def constitutive_update(self, inputs: dict, state: dict, dt):
+        """Per-point update ``(inputs, state, dt) -> (fluxes, new_state)``."""
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+
+class SmallStrainBehavior(Behavior):
+    """Small-strain mechanics: Mandel strain (6,) -> Mandel stress (6,)."""
+
+    gradients = {"Strain": 6}
+    fluxes = {"Stress": 6}
+
+    def constitutive_update(self, inputs, state, dt):
+        sig, new_state = self.small_strain_update(inputs["Strain"], state, dt)
+        return {"Stress": sig}, new_state
+
+    def small_strain_update(self, eps, state, dt):
+        raise NotImplementedError

@@ -1,0 +1,55 @@
+"""Batched J2 radial return with the analytic consistent tangent, no AD.
+
+One pass over the batch: fixed-iteration masked Newton on the scalar plastic
+multiplier and the closed-form Simo-Hughes tangent
+
+    C_ep = C - 2 mu beta K4 - gamma nbar (x) nbar,
+    beta = 3 mu dp / q_tr,   gamma = 9 mu^2 (1/(3 mu + H') - dp / q_tr).
+
+On CUDA tensors this launches the J2 kernel (ops/j2_cuda.py) with the j2_fast
+contract: cold start, ``n_iter`` = 12, regularizer ``(1e-14 (1 + sigY))^2``,
+so the card computes what the JAX package's main path computes. Written out
+as plain torch it would be some fifty small launches per call. On CPU tensors
+the kernel's plain version runs the same contract.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+from .j2_cuda import J2_FAST_CONTRACT, j2_radial_return, j2_radial_return_reference, kernel_law
+
+
+def make_j2_batched_update(elasticity, yield_stress, n_iter=12):
+    """Returns ``batched(eps (n,6), state {eps_p (n,6), p (n,)}, dt) ->
+    (sig (n,6), Ct_flat (n,36), new_state)``.
+
+    A hardening law with no in-kernel form (Ramberg-Osgood, a user callable)
+    is routed to the plain version by its type, before any launch, and the
+    route is announced once with :class:`PerformanceWarning` on the card.
+    """
+    contract = dict(J2_FAST_CONTRACT, n_iter=n_iter)
+    in_kernel = kernel_law(yield_stress) is not None
+    warned = []
+
+    def batched(eps, state, dt):
+        fn = j2_radial_return
+        if eps.is_cuda and not in_kernel:
+            fn = j2_radial_return_reference
+            if not warned:
+                from .. import PerformanceWarning
+
+                warnings.warn(
+                    f"{type(yield_stress).__name__} has no in-kernel form: the "
+                    "J2 return map runs as plain PyTorch on the card",
+                    PerformanceWarning,
+                    stacklevel=2,
+                )
+                warned.append(True)
+        sig, Ct, eps_p, p = fn(
+            eps.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous(),
+            elasticity, yield_stress, feature_major=False, **contract,
+        )
+        return sig, Ct, {"eps_p": eps_p, "p": p}
+
+    return batched

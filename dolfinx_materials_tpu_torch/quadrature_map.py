@@ -1,0 +1,111 @@
+"""QuadratureMap: binds a Material to the Gauss points of a (sub)domain.
+
+- ``register_gradient(name, expr)`` registers a kinematic expression of the
+  local field context (fem/forms.py); its variation for tangent assembly is
+  ``torch.func`` AD;
+- ``update(u)`` evaluates the gradients at the Gauss points, runs the batched
+  constitutive update on the device and keeps flux/tangent tensors there;
+- ``advance()`` commits s1 -> s0 after global convergence, ``revert()`` undoes
+  a failed load step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fem.assembly import QuadratureDomain, project_dg0
+from .fem.space import FunctionSpace
+from .material import Material
+from .utils.timers import timer
+
+
+class QuadratureMap:
+    def __init__(self, space: FunctionSpace, deg_quad: int, material: Material, cells=None):
+        """The Gauss points of ``cells`` (default: all) at quadrature degree
+        ``deg_quad``, on the material's device and in its dtype."""
+        self.space = space
+        self.material = material
+        self.dtype = material.dtype
+        self.device = material.device
+        self.domain = QuadratureDomain(space, deg_quad, cells, dtype=self.dtype, device=self.device)
+        material.set_data_manager(self.domain.num_points)
+        self.dt = 0.0
+        self.gradient_exprs: dict = {}
+        self.esv_exprs: dict = {}
+        self._eval_fns: dict = {}
+        self._flux = None
+        self._Ct = None
+        self._block_slices = {}
+        pos = 0
+        for (y, x), (sy, sx) in material.tangent_blocks.items():
+            self._block_slices[(y, x)] = (slice(pos, pos + sy * sx), sy, sx)
+            pos += sy * sx
+
+    def register_gradient(self, name: str, expr):
+        if name not in self.material.gradients:
+            raise KeyError(
+                f"behavior declares gradients {list(self.material.gradients)}, not '{name}'"
+            )
+        self.gradient_exprs[name] = expr
+        self._eval_fns[name] = self.domain.make_eval(expr)
+
+    def _gradient_values(self, u):
+        missing = [g for g in self.material.gradients if g not in self.gradient_exprs]
+        if missing:
+            raise RuntimeError(f"gradients not registered: {missing}")
+        with timer("qmap: gradients evaluation"):
+            grads = [self._eval_fns[g](u) for g in self.material.gradients]
+            return torch.cat(grads, dim=1) if len(grads) > 1 else grads[0]
+
+    def update(self, u):
+        """Gradients at Gauss points -> batched material integrate ->
+        device-resident flux/tangents."""
+        u = torch.as_tensor(u, dtype=self.dtype, device=self.device)
+        grad_vals = self._gradient_values(u)
+        with timer("qmap: material integration"):
+            flux, _, Ct = self.material.integrate(grad_vals, self.dt)
+        self._flux = flux
+        self._Ct = Ct
+        return flux, Ct
+
+    def update_flux_only(self, u):
+        """Tangent-free update for line-search trials; the cached tangent is
+        left untouched."""
+        u = torch.as_tensor(u, dtype=self.dtype, device=self.device)
+        grad_vals = self._gradient_values(u)
+        with timer("qmap: material integration (flux-only)"):
+            flux, _ = self.material.integrate_flux_only(grad_vals, self.dt)
+        self._flux = flux
+        return flux
+
+    def advance(self):
+        """Commit the converged state."""
+        self.material.data_manager.update()
+
+    def revert(self):
+        self.material.data_manager.revert()
+
+    @property
+    def num_points(self):
+        return self.domain.num_points
+
+    @property
+    def cells(self):
+        return self.domain.cells
+
+    def field_array(self, name: str):
+        """Any state field by name from the trial state."""
+        return self.material.data_manager.s1[name]
+
+    def tangent_block(self, y: str, x: str):
+        """(npoints, sy, sx) view of one consistent-tangent block."""
+        sl, sy, sx = self._block_slices[(y, x)]
+        return self._Ct[:, sl].reshape(-1, sy, sx)
+
+    def project_on(self, name: str, kind=("DG", 0)):
+        """``("DG", 0)`` projection (cell averages, (ne, k) numpy) of a state
+        field. Continuous projections are not ported yet."""
+        vals = self.material.data_manager.s1[name]
+        if kind[0] in ("DG", "dg") and kind[1] == 0:
+            return project_dg0(self.domain, vals).cpu().numpy()
+        raise NotImplementedError(kind)

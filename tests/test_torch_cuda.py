@@ -1,0 +1,157 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a card; the file imports
+neither JAX nor the JAX package, so it runs where the card is:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the J2 kernel to 1e-10 of each field's scale in f64, and to the
+Pallas kernel's own test tolerances in f32 (tests/test_pallas_j2.py); the
+take kernels to 1e-13 (f64) / 1e-6 (f32) of the plain version, and bitwise
+to each other (both add the layers in the same order).
+"""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import dolfinx_materials_tpu_torch as tdm
+from dolfinx_materials_tpu_torch import fem, models
+from dolfinx_materials_tpu_torch.fem.forms import mandel_strain_2d
+from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+from dolfinx_materials_tpu_torch.ops import j2_cuda
+from dolfinx_materials_tpu_torch.ops.j2_fast import make_j2_batched_update
+
+pytestmark = pytest.mark.cuda
+E = 70e3
+LAWS = {
+    "linear": models.LinearHardening(350.0, 2e3),
+    "voce": models.VoceHardening(350.0, 500.0, 1e3),
+    "swift": models.SwiftHardening(350.0, 2e-3, 0.2),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def j2_inputs(n, seed=3):
+    rng = np.random.default_rng(seed)
+    eps = rng.normal(size=(n, 6)) * np.geomspace(1e-4, 4e-2, n)[:, None]
+    eps_p = 1e-3 * rng.normal(size=(n, 6))
+    eps_p[:, :3] -= eps_p[:, :3].mean(axis=1, keepdims=True)
+    return eps, eps_p, 5e-3 * rng.random(n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("law", sorted(LAWS))
+@pytest.mark.parametrize("contract", ["pallas", "j2_fast"])
+@pytest.mark.parametrize("feature_major", [True, False])
+def test_j2_kernel_matches_plain(card, dtype, law, contract, feature_major):
+    c = j2_cuda.PALLAS_CONTRACT if contract == "pallas" else j2_cuda.J2_FAST_CONTRACT
+    el = models.LinearElasticIsotropic(E, 0.3)
+    eps, eps_p, p = j2_inputs(4099)  # ragged: not a multiple of the block size
+    if feature_major:
+        args = [eps.T, eps_p.T, p[None, :]]
+    else:
+        args = [eps, eps_p, p]
+    args = [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=card) for a in args]
+    before = j2_cuda.j2_radial_return.launches
+    got = j2_cuda.j2_radial_return(*args, el, LAWS[law], feature_major=feature_major, **c)
+    assert j2_cuda.j2_radial_return.launches == before + 1
+    want = j2_cuda.j2_radial_return_reference(*args, el, LAWS[law], feature_major=feature_major, **c)
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64
+    tol = dict(sig=1e-10, Ct=1e-10, st=1e-10) if f64 else dict(sig=2e-4, Ct=5e-4, st=1e-6)
+    assert float((got[0] - want[0]).abs().max()) <= tol["sig"] * float(want[0].abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= tol["Ct"] * E
+    for g, w in zip(got[2:], want[2:]):
+        assert float((g - w).abs().max()) <= tol["st"] * (float(w.abs().max()) if f64 else 1.0)
+
+
+def test_j2_wrapper_raises_instead_of_falling_back(card):
+    el = models.LinearElasticIsotropic(E, 0.3)
+    ro = models.RambergOsgoodHardening(350.0, E, 2e-3, 5.0)
+    args = [torch.zeros(s, dtype=torch.float64, device=card) for s in ((6, 256), (6, 256), (1, 256))]
+    with pytest.raises(TypeError, match="no in-kernel form"):
+        j2_cuda.j2_radial_return(*args, el, ro, **j2_cuda.J2_FAST_CONTRACT)
+    with pytest.raises(ValueError, match="contiguous"):
+        j2_cuda.j2_radial_return(args[0].T.contiguous().T, *args[1:], el, LAWS["voce"],
+                                 **j2_cuda.J2_FAST_CONTRACT)
+
+
+def test_ramberg_osgood_runs_plain_on_the_card_with_a_warning(card):
+    el = models.LinearElasticIsotropic(E, 0.3)
+    upd = make_j2_batched_update(el, models.RambergOsgoodHardening(350.0, E, 2e-3, 5.0))
+    eps, eps_p, p = (torch.as_tensor(a, device=card) for a in j2_inputs(512))
+    before = j2_cuda.j2_radial_return.launches
+    with pytest.warns(tdm.PerformanceWarning):
+        sig, _, _ = upd(eps, {"eps_p": eps_p, "p": p}, 0.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # announced once only
+        upd(eps, {"eps_p": eps_p, "p": p}, 0.0)
+    assert j2_cuda.j2_radial_return.launches == before
+    cpu, _, _ = upd(eps.cpu(), {"eps_p": eps_p.cpu(), "p": p.cpu()}, 0.0)
+    torch.testing.assert_close(sig.cpu(), cpu, rtol=1e-12, atol=1e-9)
+
+
+def plate_plans(card):
+    V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
+    dm, n = V.dofmap, V.num_dofs
+    Vt = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "triangle"), 2, (2,))
+    return {
+        "cell": bg.plan_banded_take(dm.ravel(), n, chunk=2048, max_R=256, device=card),
+        "fm": bg.plan_banded_take(dm.T.ravel(), n, chunk=512, max_R=256, device=card),
+        "asm": bg.plan_slotwise_assembly(dm, n, chunk=1024, max_R=256, device=card),
+        # repeated patch positions (overflow of max-valence dofs)
+        "asm_overflow": bg.plan_slotwise_assembly(Vt.dofmap, Vt.num_dofs, chunk=1024, max_R=256,
+                                                  k_quantile=0.01, device=card),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["cell", "fm", "asm", "asm_overflow"])
+def test_take_kernels_match_plain_and_each_other(card, dtype, kind):
+    plan = plate_plans(card)[kind]
+    table = torch.as_tensor(np.random.default_rng(3).standard_normal(plan.n_src), dtype=dtype, device=card)
+    s0, w0 = bg.banded_take_streaming.launches, bg.banded_take_windowed.launches
+    a = bg.banded_take_streaming(table, plan)
+    b = bg.banded_take_windowed(table, plan)
+    assert (bg.banded_take_streaming.launches, bg.banded_take_windowed.launches) == (s0 + 1, w0 + 1)
+    ref = bg.banded_take_reference(table, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    tol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert float((a - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_plate_steps_card_match_cpu(card):
+    """Three load steps of the 16x32 J2 plate (banded route) on the card and
+    on the CPU: u and p to 1e-8 relative, equal Newton counts."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
+        mat = tdm.Material(models.vonMisesIsotropicHardening(
+            models.LinearElasticIsotropic(E, 0.3), LAWS["voce"]), device=dev)
+        qmap = tdm.QuadratureMap(V, 4, mat)
+        qmap.register_gradient("Strain", mandel_strain_2d())
+        assert qmap.domain.banded_active
+        bottom = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 0.0))
+        top = fem.DirichletBC(fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 2.0), 1), 0.0)
+        prob = tdm.NonlinearMaterialProblem(qmap, fem.Function(V), bcs=[fem.DirichletBC(bottom, 0.0), top])
+        its = []
+        for uy in (0.0025, 0.005, 0.0075):
+            top.set(uy)
+            converged, n = prob.solve()
+            assert converged
+            its.append(n)
+        out[dev] = (prob.u.x.copy(), qmap.field_array("p").cpu().numpy().ravel(), its)
+    (uc, pc, ic), (uh, ph, ih) = out["cuda"], out["cpu"]
+    assert ic == ih and ph.max() > 0
+    np.testing.assert_allclose(uc, uh, rtol=0, atol=1e-8 * np.abs(uh).max())
+    np.testing.assert_allclose(pc, ph, rtol=0, atol=1e-8 * np.abs(ph).max())
