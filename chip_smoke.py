@@ -6,19 +6,31 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs five phases; any failure exits
+(sm_90a) into ``build/kernels/`` and runs seven phases; any failure exits
 non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report;
-2. J2: the return-map kernel against its plain PyTorch version at 2^21 points
-   (Linear, Voce, Swift; the Pallas and j2_fast contracts; f32 and f64);
+2. J2: the two return-map kernels (full and factored tangent) against their
+   plain PyTorch versions at 2^21 points (Linear, Voce, Swift, Ramberg-Osgood;
+   the Pallas and j2_fast contracts; f32 and f64), and the expanded factored
+   tangent against the full one;
 3. banded take: the streaming and the shared-memory window kernels against the
    plain version, and against each other (bitwise), on the 128x256 P2 plate's
    cell, fm and asm plans, in f32 and f64;
 4. the J2 plate slice on a 16x32 mesh, 3 load steps, on the card and on the
    CPU: displacement and plastic strain agree to 1e-8, Newton counts equal;
 5. the main path at full width: the 128x256 P2 plate (294,912 Gauss points,
-   263,682 dofs) through ``solve_adaptive``, counting kernel launches.
+   263,682 dofs) through ``solve_adaptive``, counting kernel launches;
+6. the material-point path at that width (the plate's last-step strains and
+   state, f64): ``Material.integrate`` (fast path, full-tangent kernel) and
+   the factored-tangent kernel against the generic ``vmap(jacfwd)`` update
+   with implicit-function-theorem roots; then Norton viscoplasticity and a
+   generalized Maxwell solid, card against CPU on a 4,096-point subset;
+7. the generic path through the FEM entry points: the same plate with
+   ``GeneralIsotropicHardening`` (no fast path, 7-unknown local Newton), 3
+   load steps into the plastic range, each started from the uniform stretch
+   (a lifted first iterate set through ``problem.u.x``, not the load stepping
+   of ``solve_adaptive``), against the fast-path plate at the same steps.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -43,6 +55,9 @@ E, NU, SIG0, SIGU, B_VOCE = 70e3, 0.3, 350.0, 500.0, 1e3
 LX, LY = 1.0, 2.0
 #: phase 4 loads (top displacement): the third step enters the plastic range
 SLICE_LOADS = (0.0025, 0.005, 0.0075)
+#: phase 7 loads: the third step puts the plate's mean strain above sig0/E
+GENERIC_LOADS = (0.0035, 0.007, 0.0105)
+POINT_SUBSET = 4096
 J2_N = 1 << 21
 REPS = 20
 DEVICE = "cuda"
@@ -101,18 +116,19 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
-def j2_ops_per_point(n_iter):
-    """Floating-point operations of one point of the J2 kernel, counted from
+def j2_ops_per_point(n_iter, factored=False):
+    """Floating-point operations of one point of the J2 kernels, counted from
     csrc/j2_radial_return.cu: trial state and norm ~45, each hardening
     evaluation ~10 (one exp or pow counted as one), each Newton step ~8,
-    stress/state update ~30, tangent 36 x 4 plus ~15."""
-    return 45 + 10 * (n_iter + 2) + 8 * n_iter + 30 + 36 * 4 + 15
+    stress/state update ~30, the two tangent factors ~15, and for the full
+    tangent 36 x 4 more."""
+    return 45 + 10 * (n_iter + 2) + 8 * n_iter + 30 + 15 + (0 if factored else 36 * 4)
 
 
-def j2_bytes(n, dtype):
+def j2_bytes(n, dtype, factored=False):
     """Inputs read once (eps, eps_p: 6 each, p: 1) and outputs written once
-    (sig 6, Ct 36, eps_p 6, p 1): 62 values a point."""
-    return 62 * n * torch.empty((), dtype=dtype).element_size()
+    (sig 6, eps_p 6, p 1, and Ct 36 or fac 2): 62 or 28 values a point."""
+    return (28 if factored else 62) * n * torch.empty((), dtype=dtype).element_size()
 
 
 def j2_inputs(n, seed, device):
@@ -148,7 +164,8 @@ def feature_major(eps, eps_p, p, dtype):
 
 def phase_j2():
     from dolfinx_materials_tpu_torch.models import (
-        LinearElasticIsotropic, LinearHardening, SwiftHardening, VoceHardening,
+        LinearElasticIsotropic, LinearHardening, RambergOsgoodHardening, SwiftHardening,
+        VoceHardening,
     )
     from dolfinx_materials_tpu_torch.ops import j2_cuda
 
@@ -157,51 +174,67 @@ def phase_j2():
         "linear": LinearHardening(SIG0, 2e3),
         "voce": VoceHardening(SIG0, SIGU, B_VOCE),
         "swift": SwiftHardening(SIG0, 2e-3, 0.2),
+        "ramberg": RambergOsgoodHardening(SIG0, E, 2e-3, 5.0),
     }
     contracts = {"pallas": j2_cuda.PALLAS_CONTRACT, "j2_fast": j2_cuda.J2_FAST_CONTRACT}
     # tolerances: f64 to 1e-10 of each field's scale; f32 as the Pallas
-    # kernel's own test (tests/test_pallas_j2.py)
+    # kernel's own test (tests/test_pallas_j2.py). The tangent column holds Ct
+    # for the full kernel and fac = [2 mu beta, gamma] for the factored one,
+    # both on the scale of E. The expanded factored tangent against the full
+    # kernel's Ct: 1e-5 E in f32, 1e-12 E in f64 (the two take nbar from the
+    # trial and from the returned stress).
     tol = {
-        torch.float64: dict(sig=1e-10, Ct=1e-10, state=1e-10),
-        torch.float32: dict(sig=2e-4, Ct=5e-4, state=1e-6),
+        torch.float64: dict(sig=1e-10, tangent=1e-10, state=1e-10, expand=1e-12),
+        torch.float32: dict(sig=2e-4, tangent=5e-4, state=1e-6, expand=1e-5),
+    }
+    kernels = {
+        "full": (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_reference),
+        "factored": (j2_cuda.j2_radial_return_factored, j2_cuda.j2_radial_return_factored_reference),
     }
     log(f"[j2] {J2_N} points, feature-major; times are medians of {REPS} CUDA-event reps")
-    worst = 0.0
+    worst = {"full": 0.0, "factored": 0.0}
     base = j2_inputs(J2_N, 0, DEVICE)
     for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
         for lname, law in laws.items():
             eps, eps_p, p = feature_major(off_yield_surface(*base, el, law), base[1], base[2], dtype)
             for cname, c in contracts.items():
-                out = j2_cuda.j2_radial_return(eps, eps_p, p, el, law, **c)
-                ref = j2_cuda.j2_radial_return_reference(eps, eps_p, p, el, law, **c)
-                torch.cuda.synchronize()
-                f64 = dtype == torch.float64
-                errs = dict(
-                    sig=rel_err(out[0], ref[0], ref[0].abs().max()),
-                    Ct=rel_err(out[1], ref[1], E),
-                    # f64: relative to each state field's own scale; f32: absolute
-                    state=max(rel_err(o, r, r.abs().max() if f64 else 1.0)
-                              for o, r in zip(out[2:], ref[2:])),
-                )
-                plastic = float((ref[3] > p).double().mean())
-                ok = all(errs[k] <= tol[dtype][k] for k in errs) and plastic >= 0.3
-                abs_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-                if f64:
-                    worst = max(worst, abs_err)
-                t_k = cuda_ms(lambda: j2_cuda.j2_radial_return(eps, eps_p, p, el, law, **c))
-                t_p = cuda_ms(
-                    lambda: j2_cuda.j2_radial_return_reference(eps, eps_p, p, el, law, **c),
-                    reps=5,
-                )
-                bnd, by = bound_ms(j2_bytes(J2_N, dtype), j2_ops_per_point(c["n_iter"]) * J2_N, dtype)
-                log(
-                    f"[j2] {str(dtype)[6:]:8s} {lname:6s} {cname:8s} plastic={plastic:.3f} "
-                    f"err sig={errs['sig']:.2e} Ct={errs['Ct']:.2e} state={errs['state']:.2e} "
-                    f"kernel_ms={t_k:.4f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} "
-                    f"{'ok' if ok else 'FAIL'}"
-                )
-                if not ok:
-                    raise AssertionError(f"J2 kernel disagrees with its plain version: {dtype} {lname} {cname}")
+                outs = {}
+                for kname, (kernel, plain) in kernels.items():
+                    factored = kname == "factored"
+                    out = outs[kname] = kernel(eps, eps_p, p, el, law, **c)
+                    ref = plain(eps, eps_p, p, el, law, **c)
+                    torch.cuda.synchronize()
+                    errs = dict(
+                        sig=rel_err(out[0], ref[0], ref[0].abs().max()),
+                        tangent=rel_err(out[1], ref[1], E),
+                        # f64: relative to each state field's own scale; f32: absolute
+                        state=max(rel_err(o, r, r.abs().max() if f64 else 1.0)
+                                  for o, r in zip(out[2:], ref[2:])),
+                    )
+                    if factored:
+                        Ct = j2_cuda.expand_factored_tangent(el, out[0], out[1])
+                        errs["expand"] = rel_err(Ct, outs["full"][1], E)
+                        del Ct
+                    plastic = float((ref[3] > p).double().mean())
+                    ok = all(errs[k] <= tol[dtype][k] for k in errs) and plastic >= 0.2  # the batch must mix elastic and plastic points
+                    if f64:
+                        worst[kname] = max(worst[kname],
+                                           max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+                    del ref
+                    t_k = cuda_ms(lambda: kernel(eps, eps_p, p, el, law, **c))
+                    t_p = cuda_ms(lambda: plain(eps, eps_p, p, el, law, **c), reps=5)
+                    bnd, by = bound_ms(j2_bytes(J2_N, dtype, factored),
+                                       j2_ops_per_point(c["n_iter"], factored) * J2_N, dtype)
+                    log(
+                        f"[j2] {kname:8s} {str(dtype)[6:]:8s} {lname:7s} {cname:8s} plastic={plastic:.3f} err "
+                        + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                        + f" kernel_ms={t_k:.4f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} "
+                        f"{'ok' if ok else 'FAIL'}"
+                    )
+                    if not ok:
+                        raise AssertionError(
+                            f"J2 {kname} kernel disagrees with its plain version: {dtype} {lname} {cname}")
     return worst
 
 
@@ -294,21 +327,23 @@ def phase_take(nx):
 
 
 # ------------------------------------------------------------ phases 4 and 5
-def build_plate(nx, device):
+def build_plate(nx, device, general=False):
     """The plane-strain J2 plate of demos/plane_elastoplasticity.py: bottom
-    clamped, top pulled in y; P2 quads, degree-4 quadrature, f64."""
+    clamped, top pulled in y; P2 quads, degree-4 quadrature, f64. With
+    ``general`` the same von Mises law as ``GeneralIsotropicHardening``, which
+    has no whole-batch fast path and goes through the generic update."""
     import dolfinx_materials_tpu_torch as dm
     from dolfinx_materials_tpu_torch import fem
     from dolfinx_materials_tpu_torch.fem.forms import mandel_strain_2d
     from dolfinx_materials_tpu_torch.models import (
-        LinearElasticIsotropic, VoceHardening, vonMisesIsotropicHardening,
+        GeneralIsotropicHardening, LinearElasticIsotropic, VoceHardening, vonMisesIsotropicHardening,
     )
 
     mesh = fem.create_rectangle((0.0, 0.0), (LX, LY), (nx, 2 * nx), "quad")
     V = fem.FunctionSpace(mesh, degree=2, shape=(2,))
+    law = GeneralIsotropicHardening if general else vonMisesIsotropicHardening
     material = dm.Material(
-        vonMisesIsotropicHardening(LinearElasticIsotropic(E, NU), VoceHardening(SIG0, SIGU, B_VOCE)),
-        device=device,
+        law(LinearElasticIsotropic(E, NU), VoceHardening(SIG0, SIGU, B_VOCE)), device=device
     )
     qmap = dm.QuadratureMap(V, 4, material)
     qmap.register_gradient("Strain", mandel_strain_2d())
@@ -355,7 +390,8 @@ def reset_counts():
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
     from dolfinx_materials_tpu_torch.ops import j2_cuda
 
-    for fn in (j2_cuda.j2_radial_return, bg.banded_take_streaming, bg.banded_take_windowed):
+    for fn in (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_factored,
+               bg.banded_take_streaming, bg.banded_take_windowed):
         fn.launches = 0
 
 
@@ -365,6 +401,7 @@ def read_counts():
 
     return {
         "j2_radial_return": j2_cuda.j2_radial_return.launches,
+        "j2_radial_return_factored": j2_cuda.j2_radial_return_factored.launches,
         "banded_take_streaming": bg.banded_take_streaming.launches,
         "banded_take_windowed": bg.banded_take_windowed.launches,
     }
@@ -444,27 +481,203 @@ def phase_main(nx, nsteps0=6):
     return counts, gradients, last["state"], qmap.material.behavior
 
 
-def time_j2_main(gradients, state, behavior):
-    """The J2 kernel on the main path's last step (point-major, f64, j2_fast
-    contract) against its plain version."""
+def time_j2_main(gradients, state, behavior, factored=False):
+    """One J2 kernel on the given strains and the main path's last-step state
+    (point-major, f64, j2_fast contract): held against its plain version on
+    those inputs, then timed on them. Call it outside the counted runs: its
+    launches are comparisons and timings, not a path's."""
     from dolfinx_materials_tpu_torch.ops import j2_cuda
 
+    kernel, plain = (
+        (j2_cuda.j2_radial_return_factored, j2_cuda.j2_radial_return_factored_reference)
+        if factored else (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_reference)
+    )
     el, law = behavior.elasticity, behavior.yield_stress
     args = (gradients.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous(), el, law)
     kw = dict(j2_cuda.J2_FAST_CONTRACT, feature_major=False)
-    out = j2_cuda.j2_radial_return(*args, **kw)
-    ref = j2_cuda.j2_radial_return_reference(*args, **kw)
+    out = kernel(*args, **kw)
+    ref = plain(*args, **kw)
     err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     scale = float(ref[0].abs().max())
     if rel_err(out[0], ref[0], scale) > 1e-10 or rel_err(out[1], ref[1], E) > 1e-10:
         raise AssertionError("J2 kernel disagrees with its plain version on main-path inputs")
     n = gradients.shape[0]
-    t_k = cuda_ms(lambda: j2_cuda.j2_radial_return(*args, **kw))
-    t_p = cuda_ms(lambda: j2_cuda.j2_radial_return_reference(*args, **kw), reps=5)
-    bnd, by = bound_ms(j2_bytes(n, torch.float64), j2_ops_per_point(kw["n_iter"]) * n, torch.float64)
-    log(f"[j2-main] {n} points f64 point-major: kernel_ms={t_k:.4f} bound_ms={bnd:.4f} ({by}) "
-        f"plain_ms={t_p:.3f} max_abs_err={err:.2e}")
+    t_k = cuda_ms(lambda: kernel(*args, **kw))
+    t_p = cuda_ms(lambda: plain(*args, **kw), reps=5)
+    bnd, by = bound_ms(j2_bytes(n, torch.float64, factored),
+                       j2_ops_per_point(kw["n_iter"], factored) * n, torch.float64)
+    log(f"[j2-main] {'factored' if factored else 'full':8s} {n} points f64 point-major: kernel_ms={t_k:.4f} "
+        f"bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} max_abs_err={err:.2e}")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+
+# ------------------------------------------------------------------ phase 6
+def seconds_per_call(fn, reps=3):
+    """Median host seconds of ``fn()`` ending in a device synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times))
+
+
+def phase_point(gradients, state, behavior):
+    """The material-point path at the plate's width: strains and state in,
+    stress, state and tangent out, no mesh. Returns the launch counts of the
+    path, the seconds per update of each route and the strains it ran on."""
+    import dolfinx_materials_tpu_torch as dm
+    from dolfinx_materials_tpu_torch.models import (
+        GeneralizedMaxwell, LinearElasticIsotropic, LinearHardening, NortonViscoplasticity,
+    )
+    from dolfinx_materials_tpu_torch.ops import j2_cuda
+
+    el, law = behavior.elasticity, behavior.yield_stress
+    eps_p, p = state["eps_p"].contiguous(), state["p"].contiguous()
+    eps = off_yield_surface(gradients, eps_p, p, el, law).contiguous()
+    n = eps.shape[0]
+    mat = dm.Material(behavior, device=DEVICE)
+    mat.set_data_manager(n)
+    mat.set_initial_state_dict({"eps_p": eps_p, "p": p})
+    s0 = mat.data_manager.s0.internal
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sig_f, isv_f, Ct_f = mat.integrate(eps)  # fast path: the full-tangent kernel
+    sig_k, fac, epsp_k, p_k = j2_cuda.j2_radial_return_factored(  # the factored-tangent kernel
+        eps, eps_p, p, el, law, feature_major=False, **j2_cuda.J2_FAST_CONTRACT)
+    sig_g, Ct_g, st_g = mat.batched_constitutive_update(eps, {}, s0, 0.0)  # generic IFT path
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # fast path against generic path: the bars of tests/test_j2_fast.py
+    scale = float(sig_g.abs().max())
+    s1 = mat.data_manager.s1
+    errs = dict(
+        sig=rel_err(sig_f, sig_g, scale), Ct=rel_err(Ct_f, Ct_g, E),
+        p=float((s1["p"].reshape(-1) - st_g["p"]).abs().max()),
+        eps_p=float((s1["eps_p"] - st_g["eps_p"]).abs().max()),
+        # factored kernel: same stress and state as the full one, and its
+        # expansion is the full tangent (1e-12 E in f64)
+        k2_sig=rel_err(sig_k, sig_f, scale), k2_p=float((p_k - s1["p"].reshape(-1)).abs().max()),
+        k2_expand=rel_err(j2_cuda.expand_factored_tangent(el, sig_k, fac, feature_major=False), Ct_f, E),
+    )
+    bars = dict(sig=1e-8, Ct=1e-7, p=1e-12, eps_p=1e-12, k2_sig=1e-13, k2_p=1e-14, k2_expand=1e-12)
+    plastic = float((st_g["p"] > p).double().mean())
+    ok = all(errs[k] <= bars[k] for k in bars) and plastic > 0.05
+    t_fast = seconds_per_call(lambda: mat.integrate(eps))
+    t_gen = seconds_per_call(lambda: mat.batched_constitutive_update(eps, {}, s0, 0.0))
+    t_flux = seconds_per_call(lambda: mat.batched_flux_update(eps, {}, s0, 0.0))
+    log(f"[point] {n} points f64, von Mises + Voce, plastic share {plastic:.3f}: fast path against generic "
+        + " ".join(f"{k}={v:.2e}" for k, v in errs.items()) + f" {'ok' if ok else 'FAIL'}")
+    log(f"[point] seconds per update: Material.integrate (fast path) {t_fast:.5f}, generic vmap(jacfwd) "
+        f"{t_gen:.4f} ({t_gen / t_fast:.0f}x), generic flux-only {t_flux:.4f}; peak device memory "
+        f"{peak_gib:.2f} GiB; launches {counts}")
+    if not ok:
+        raise AssertionError("material-point path: fast path, factored kernel and generic path disagree")
+
+    # behaviors with no fast path, at full width; card against CPU on a subset
+    others = {
+        "norton": (NortonViscoplasticity(LinearElasticIsotropic(E, NU), LinearHardening(100.0, 1e3),
+                                         K=150.0, n=3.0), {"eps_p": eps_p, "p": p}, 0.05),
+        "maxwell": (GeneralizedMaxwell(50e3, 10e3, [(20e3, 0.5), (8e3, 5.0), (3e3, 50.0)]),
+                    {"epsv": torch.stack([0.5 * eps_p, 0.25 * eps_p, -0.5 * eps_p], dim=1)}, 0.3),
+    }
+    seconds = {"fast": t_fast, "generic": t_gen, "generic_flux": t_flux}
+    sub = torch.arange(0, n, n // POINT_SUBSET, device=DEVICE)[:POINT_SUBSET]
+    for name, (beh, st, dt) in others.items():
+        full = dm.Material(beh, device=DEVICE)
+        full.set_data_manager(n)
+        full.set_initial_state_dict(st)
+        flux, isv, Ct = full.integrate(eps, dt)
+        finite = bool(torch.isfinite(flux).all() and torch.isfinite(Ct).all() and torch.isfinite(isv).all())
+        seconds[name] = seconds_per_call(lambda: full.integrate(eps, dt))
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            m = dm.Material(beh, device=dev)
+            m.set_data_manager(POINT_SUBSET)
+            m.set_initial_state_dict({k: v[sub].to(dev) for k, v in st.items()})
+            outs[dev] = [t.cpu() for t in m.integrate(eps[sub].to(dev), dt)]
+        # card against CPU: 1e-10 of each array's scale (same code, other sums)
+        e = [rel_err(a, b, b.abs().max()) for a, b in zip(outs[DEVICE], outs["cpu"])]
+        ok = finite and max(e) <= 1e-10
+        log(f"[point] {name}: integrate at {n} points {seconds[name]:.4f} s per update, dt={dt}; "
+            f"{POINT_SUBSET}-point subset card against CPU: flux {e[0]:.2e} isv {e[1]:.2e} tangent {e[2]:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"material-point path: {name} disagrees between card and CPU")
+    if counts["j2_radial_return"] < 1 or counts["j2_radial_return_factored"] < 1:
+        raise AssertionError("material-point path did not launch both J2 kernels")
+    return counts, seconds, eps
+
+
+# ------------------------------------------------------------------ phase 7
+def run_generic_steps(nx, general):
+    from dolfinx_materials_tpu_torch.utils.timers import reset_timings, timing
+
+    problem, qmap, bc_top, _ = build_plate(nx, DEVICE, general=general)
+    reset_timings()
+    torch.cuda.reset_peak_memory_stats()
+    newton, cg_its = [], []
+    t0 = time.perf_counter()
+    y = np.asarray(problem.u.space.node_coords)[:, 1]
+    for uy in GENERIC_LOADS:
+        bc_top.set(uy)
+        # start Newton from the uniform stretch u_y = uy y / L_y: from the last
+        # displacement with the new boundary value imposed, the whole increment
+        # sits in the top row of cells and steps of this size fail (PERF.md 7)
+        lifted = np.asarray(problem.u.x).reshape(-1, 2).copy()
+        lifted[:, 1] = uy * y / LY
+        problem.u.x = lifted.reshape(-1)
+        converged, its = problem.solve()
+        if not converged:
+            raise AssertionError(f"generic phase (general={general}): load {uy} did not converge")
+        newton.append(its)
+        cg_its.append(sum(problem.metrics["cg_iterations"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    newton_s = timing("solver: Newton solve")[1]
+    split = {k: timing(f"solver: {k}")[1] for k in ("constitutive update", "jacobian assembly", "linear solve")}
+    split["residual and line search"] = newton_s - sum(split.values())
+    return dict(u=torch.as_tensor(problem.u.x), p=qmap.field_array("p").reshape(-1).cpu(),
+                newton=newton, cg=cg_its, wall=wall, split=split, newton_s=newton_s,
+                updates=timing("solver: constitutive update")[0],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_generic(nx):
+    """The generic constitutive path through QuadratureMap.update and
+    NonlinearMaterialProblem.solve (CG + two-level) at the main path's width,
+    against the fast-path plate at the same load steps."""
+    reset_counts()
+    gen = run_generic_steps(nx, general=True)
+    counts = read_counts()
+    fast = run_generic_steps(nx, general=False)
+    # both plates solve the same steps to the same Newton tolerance (1e-10 of
+    # the first residual) with CG at 1e-12, from tangents that agree to 1e-7 E:
+    # the converged u and p agree far inside 1e-6 of their scale
+    e_u = rel_err(gen["u"], fast["u"], fast["u"].abs().max())
+    e_p = rel_err(gen["p"], fast["p"], fast["p"].abs().max())
+    plastic = float((fast["p"] > 0).double().mean())
+    ok = e_u <= 1e-6 and e_p <= 1e-6 and plastic > 0.01
+    for name, r in (("generic", gen), ("fast", fast)):
+        log(f"[generic] {name:7s} {nx}x{2 * nx}: loads {GENERIC_LOADS} (lifted starts) newton={r['newton']} cg={r['cg']} "
+            f"wall_s={r['wall']:.2f}; " + ", ".join(
+                f"{k} {v:.2f}s ({100 * v / r['newton_s']:.1f}%)" for k, v in r["split"].items())
+            + f"; {r['updates']} full constitutive updates (gradients + material integration), "
+            f"{r['split']['constitutive update'] / r['updates']:.4f} s each; peak device memory "
+            f"{r['peak_gib']:.2f} GiB")
+    log(f"[generic] generic against fast-path plate: u rel err {e_u:.2e} p rel err {e_p:.2e} "
+        f"p max {float(fast['p'].max()):.3e} plastic share {plastic:.3f} launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("generic path through the FEM entry points disagrees with the fast-path plate")
+    if counts["j2_radial_return"] or counts["j2_radial_return_factored"]:
+        raise AssertionError("the generic plate must not launch a J2 kernel")
+    return gen, fast
 
 
 def main():
@@ -477,14 +690,21 @@ def main():
     nx_full = 128
     t0 = time.perf_counter()
     smi = phase_build()
+    f64 = torch.float64
     j2_worst = phase_j2()
     takes = phase_take(nx_full)
     phase_slice_cpu_vs_card()
     counts, grads, state, behavior = phase_main(nx_full)
-    j2_main = time_j2_main(grads, state, behavior)
+    k1 = time_j2_main(grads, state, behavior)
+    # the factored kernel's path is the material-point one: no FEM path
+    # launches it (the JAX package has no element-matrix consumer of it). It
+    # is held against its plain version and timed on the strains that its
+    # counted launch in [point] ran on
+    point_counts, _, eps_point = phase_point(grads, state, behavior)
+    k2 = time_j2_main(eps_point, state, behavior, factored=True)
+    phase_generic(nx_full)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
-    f64 = torch.float64
     keys = ("cell", "fm", "asm")
 
     def take_row(name, kind, replaces):
@@ -502,16 +722,21 @@ def main():
             "library_ms": sum(takes[(f64, k)]["t_l"] for k in keys),
         }
 
+    def j2_row(name, replaces, launches, timed, worst):
+        return {
+            "name": name, "route": "cuda",
+            "source": "dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(timed["max_abs_err"], worst),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": None,
+        }
+
     kernels = [
-        dict(
-            name="j2_radial_return", route="cuda",
-            source="dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
-            replaces="dolfinx_materials_tpu/ops/pallas_j2.py:103",
-            launches=counts["j2_radial_return"],
-            max_abs_err=max(j2_main["max_abs_err"], j2_worst),
-            ms=j2_main["ms"], plain_ms=j2_main["plain_ms"], bound_ms=j2_main["bound_ms"],
-            bound_by=j2_main["bound_by"], library_ms=None,
-        ),
+        j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
+               counts["j2_radial_return"], k1, j2_worst["full"]),
+        j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
+               point_counts["j2_radial_return_factored"], k2, j2_worst["factored"]),
         take_row("banded_take_streaming", "stream", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
         take_row("banded_take_windowed", "window", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
     ]

@@ -22,8 +22,8 @@ _torch.backends.cudnn.allow_tf32 = False
 
 
 class PerformanceWarning(UserWarning):
-    """Warns of a slower path taken on purpose, e.g. a hardening law with no
-    in-kernel form running through the plain PyTorch return map on the card."""
+    """Category for warnings about a slower path taken on purpose (part of
+    the public names shared with the JAX package)."""
 
 
 def resolve_device(device=None) -> _torch.device:

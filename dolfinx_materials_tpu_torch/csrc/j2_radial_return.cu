@@ -1,17 +1,25 @@
-// J2 radial return with the full consistent tangent, one thread per Gauss point.
+// J2 radial return with its consistent tangent, one thread per Gauss point.
 //
-// Replaces the TPU kernel dolfinx_materials_tpu/ops/pallas_j2.py,
-// make_j2_pallas_update (body _radial_return_rows): elastic trial, hardening
-// Newton on dp (warm-started or cold, n_iter unrolled steps), stress, new
-// plastic strain and p, and the Simo-Hughes tangent
+// Replaces the two TPU kernels of dolfinx_materials_tpu/ops/pallas_j2.py
+// (shared body _radial_return_rows): elastic trial, hardening Newton on dp
+// (warm-started or cold, n_iter steps), stress, new plastic strain and p, and
+// the Simo-Hughes tangent
 //     Ct = C - 2 mu beta K4 - gamma nbar (x) nbar.
-// The same kernel serves the j2_fast contract (ops/j2_fast.py: cold start,
-// 12 iterations, regularizer 1e-14) and the Pallas one (warm start, 4
-// iterations, regularizer 1e-7): both are parameters.
+// - make_j2_pallas_update   -> j2_radial_return_f32/_f64: Ct as 36 entries;
+// - make_j2_pallas_factored -> j2_radial_return_factored_f32/_f64: Ct as the
+//   two scalars fac = [2 mu beta, gamma]; nbar = dev(sig)/q(sig) is recovered
+//   from the returned stress (the return keeps the deviatoric direction).
+// The tangent form is a compile-time parameter of one kernel template, so the
+// factored instantiation carries neither the 36-entry store loop nor the
+// stiffness constants. The same kernels serve the j2_fast contract
+// (ops/j2_fast.py: cold start, 12 iterations, regularizer 1e-14) and the
+// Pallas one (warm start, 4 iterations, regularizer 1e-7): both are
+// parameters.
 //
-// Bound on this card: memory. A point reads 13 values and writes 49 (the
-// 36-entry tangent dominates), about 2 flops per byte in f64 and 4 in f32,
-// far under the H100's compute/bandwidth ratio. Design: every point is
+// Bound on this card: memory. A point reads 13 values and writes 49 with the
+// full tangent (the 36 entries dominate) or 15 with the factored one, about
+// 2 flops per byte in f64 and 4 in f32 for the full form and under 20 for the
+// factored, far under the H100's compute/bandwidth ratio. Design: every point is
 // independent, so one thread owns one point, keeps the whole Newton loop in
 // registers, and touches device memory exactly once per input and output.
 // With feature-major (components, n) arrays neighbouring threads read and
@@ -24,7 +32,8 @@
 //
 // The TPU kernel evaluates the hardening curve with jax.jvp on any callable;
 // here the value and slope are closed forms for the laws with a law id
-// (models/hardening.py); other laws run the plain PyTorch return map.
+// (models/hardening.py: Linear, Voce, Swift, Ramberg-Osgood); a user callable
+// with no closed form runs the plain PyTorch return map.
 
 #include <cuda_runtime.h>
 
@@ -33,16 +42,24 @@ namespace {
 constexpr int LAW_LINEAR = 0;
 constexpr int LAW_VOCE = 1;
 constexpr int LAW_SWIFT = 2;
+constexpr int LAW_RAMBERG_OSGOOD = 3;
 constexpr int THREADS = 256;
 
 template <typename T>
 struct J2Params {
   T mu, lmbda;
-  T h0, h1, h2;  // hardening parameters, meaning set by law
-  T reg;         // regularizer: tiny = (reg * (1 + sigY(p)))^2
-  T C[36];       // Mandel elastic stiffness, row-major
+  T h0, h1, h2, h3;  // hardening parameters, meaning set by law
+  T reg;             // regularizer: tiny = (reg * (1 + sigY(p)))^2
   int law, n_iter, warm_start, feature_major;
 };
+
+// Mandel elastic stiffness, row-major: an argument of the full-tangent
+// instantiation only
+template <typename T>
+struct Stiffness {
+  T C[36];
+};
+struct NoStiffness {};
 
 template <typename T>
 __device__ __forceinline__ T relu(T x) { return x > T(0) ? x : T(0); }
@@ -64,19 +81,28 @@ __device__ __forceinline__ void hardening(const J2Params<T>& P, T p, T& Y, T& dY
     T e = dexp(-P.h2 * p);
     Y = P.h0 + (P.h1 - P.h0) * (T(1) - e);
     dY = (P.h1 - P.h0) * (P.h2 * e);
-  } else {  // Swift: sig0 (1 + p/eps0)^n
+  } else if (P.law == LAW_SWIFT) {  // sig0 (1 + p/eps0)^n
     T base = T(1) + p / P.h1;
     Y = P.h0 * dpow(base, P.h2);
     dY = P.h0 * P.h2 * dpow(base, P.h2 - T(1)) / P.h1;
+  } else {  // Ramberg-Osgood: sig0 (k max(p, p_eps))^(1/n), k = E/(alpha sig0);
+            // h1 = k, h2 = 1/n, h3 = p_eps; the clamp has slope 0 below p_eps
+    const bool above = p >= P.h3;
+    T x = (above ? p : P.h3) * P.h1;
+    Y = P.h0 * dpow(x, P.h2);
+    dY = above ? P.h0 * P.h2 * P.h1 * dpow(x, P.h2 - T(1)) : T(0);
   }
 }
 
-template <typename T>
+// FACTORED = false: tg is Ct (36 wide), Cm a Stiffness<T>;
+// FACTORED = true:  tg is fac (2 wide), Cm a NoStiffness.
+template <typename T, bool FACTORED, typename CM>
 __global__ void __launch_bounds__(THREADS)
 j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
                         const T* __restrict__ p_in, T* __restrict__ sig,
-                        T* __restrict__ ct, T* __restrict__ epspn,
-                        T* __restrict__ pn, long long n, const J2Params<T> P) {
+                        T* __restrict__ tg, T* __restrict__ epspn,
+                        T* __restrict__ pn, long long n, const J2Params<T> P,
+                        const CM Cm) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   // element (f, i) of a width-w array: f*n + i feature-major, i*w + f otherwise
@@ -148,20 +174,25 @@ j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
   const T plastic = f_tr > T(0) ? T(1) : T(0);
   const T b2m = T(6) * mu * mu * dp * iq * plastic;  // 2 mu beta
   const T gamma = T(9) * mu * mu * (T(1) / (T(3) * mu + Hp) - dp * iq) * plastic;
+  if constexpr (FACTORED) {
+    tg[AT(0, 2)] = b2m;
+    tg[AT(1, 2)] = gamma;
+  } else {
 #pragma unroll
-  for (int a = 0; a < 6; ++a) {
+    for (int a = 0; a < 6; ++a) {
 #pragma unroll
-    for (int b = 0; b < 6; ++b) {
-      // K4 = I - (1/3) I2 (x) I2
-      const T k4 = (a == b ? T(1) : T(0)) - (a < 3 && b < 3 ? T(1) / T(3) : T(0));
-      ct[AT(6 * a + b, 36)] = P.C[6 * a + b] - k4 * b2m - gamma * nb[a] * nb[b];
+      for (int b = 0; b < 6; ++b) {
+        // K4 = I - (1/3) I2 (x) I2
+        const T k4 = (a == b ? T(1) : T(0)) - (a < 3 && b < 3 ? T(1) / T(3) : T(0));
+        tg[AT(6 * a + b, 36)] = Cm.C[6 * a + b] - k4 * b2m - gamma * nb[a] * nb[b];
+      }
     }
   }
 #undef AT
 }
 
-template <typename T>
-int launch(const T* eps, const T* epsp, const T* p, T* sig, T* ct, T* epspn, T* pn,
+template <typename T, bool FACTORED>
+int launch(const T* eps, const T* epsp, const T* p, T* sig, T* tg, T* epspn, T* pn,
            long long n, const double* params, int law, int n_iter, int warm_start,
            int feature_major, void* stream) {
   J2Params<T> P;
@@ -170,39 +201,43 @@ int launch(const T* eps, const T* epsp, const T* p, T* sig, T* ct, T* epspn, T* 
   P.h0 = T(params[2]);
   P.h1 = T(params[3]);
   P.h2 = T(params[4]);
-  P.reg = T(params[5]);
-  for (int k = 0; k < 36; ++k) P.C[k] = T(params[6 + k]);
+  P.h3 = T(params[5]);
+  P.reg = T(params[6]);
   P.law = law;
   P.n_iter = n_iter;
   P.warm_start = warm_start;
   P.feature_major = feature_major;
   if (n <= 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  j2_radial_return_kernel<T><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      eps, epsp, p, sig, ct, epspn, pn, n, P);
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (FACTORED) {
+    j2_radial_return_kernel<T, true, NoStiffness><<<blocks, THREADS, 0, st>>>(
+        eps, epsp, p, sig, tg, epspn, pn, n, P, NoStiffness{});
+  } else {
+    Stiffness<T> Cm;
+    for (int k = 0; k < 36; ++k) Cm.C[k] = T(params[7 + k]);
+    j2_radial_return_kernel<T, false, Stiffness<T>><<<blocks, THREADS, 0, st>>>(
+        eps, epsp, p, sig, tg, epspn, pn, n, P, Cm);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// params (host): mu, lmbda, h0, h1, h2, reg, C[36]
-extern "C" int j2_radial_return_f32(const float* eps, const float* epsp, const float* p,
-                                    float* sig, float* ct, float* epspn, float* pn,
-                                    long long n, const double* params, int law,
-                                    int n_iter, int warm_start, int feature_major,
-                                    void* stream) {
-  return launch<float>(eps, epsp, p, sig, ct, epspn, pn, n, params, law, n_iter,
-                       warm_start, feature_major, stream);
-}
+// params (host): mu, lmbda, h0, h1, h2, h3, reg, then C[36] (full tangent only)
+#define J2_ENTRY(NAME, T, FACTORED)                                                    \
+  extern "C" int NAME(const T* eps, const T* epsp, const T* p, T* sig, T* tg,         \
+                      T* epspn, T* pn, long long n, const double* params, int law,     \
+                      int n_iter, int warm_start, int feature_major, void* stream) {   \
+    return launch<T, FACTORED>(eps, epsp, p, sig, tg, epspn, pn, n, params, law,      \
+                               n_iter, warm_start, feature_major, stream);             \
+  }
 
-extern "C" int j2_radial_return_f64(const double* eps, const double* epsp, const double* p,
-                                    double* sig, double* ct, double* epspn, double* pn,
-                                    long long n, const double* params, int law,
-                                    int n_iter, int warm_start, int feature_major,
-                                    void* stream) {
-  return launch<double>(eps, epsp, p, sig, ct, epspn, pn, n, params, law, n_iter,
-                        warm_start, feature_major, stream);
-}
+J2_ENTRY(j2_radial_return_f32, float, false)
+J2_ENTRY(j2_radial_return_f64, double, false)
+J2_ENTRY(j2_radial_return_factored_f32, float, true)
+J2_ENTRY(j2_radial_return_factored_f64, double, true)
+#undef J2_ENTRY
 
 extern "C" const char* dxm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -39,7 +39,9 @@ class QuadratureDomain:
     )
 
     def __init__(self, space: FunctionSpace, quad_degree: int, cells=None,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", weight=None):
+        """``weight``: optional callable x (m, dim) -> (m,) multiplying the
+        integration measure (e.g. ``lambda x: 2*pi*x[:, 0]`` for axisymmetry)."""
         mesh = space.mesh
         self.space = space
         self.quad_degree = quad_degree
@@ -67,6 +69,8 @@ class QuadratureDomain:
         dNdx = np.einsum("qvj,cqji->cqvi", elem.dN, invJ)
         x_q = np.einsum("qv,cvi->cqi", geo.N, coords)
         wdetJ = elem.qweights[None, :] * np.abs(detJ)
+        if weight is not None:
+            wdetJ = wdetJ * np.asarray(weight(x_q.reshape(-1, x_q.shape[-1]))).reshape(wdetJ.shape)
 
         def dev(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.device)

@@ -33,6 +33,17 @@ def mandel_strain_2d(plane="strain"):
     return expr
 
 
+def plane_stress_strain_3():
+    """2D displacement -> plane-stress Mandel 3-vector [exx, eyy, s2 exy],
+    work-conjugate to a 3-vector Stress."""
+
+    def expr(ctx):
+        g = ctx.grad
+        return torch.stack([g[0, 0], g[1, 1], SQ2 * 0.5 * (g[0, 1] + g[1, 0])])
+
+    return expr
+
+
 def mandel_strain_3d():
     """3D displacement -> Mandel strain 6-vector."""
 
@@ -48,5 +59,31 @@ def mandel_strain_3d():
                 SQ2 * 0.5 * (g[1, 2] + g[2, 1]),
             ]
         )
+
+    return expr
+
+
+def axisymmetric_strain():
+    """Axisymmetric (r, z) displacement (u_r, u_z) -> Mandel strain
+    [e_rr, e_tt, e_zz, 0, s2 e_rz, 0] with the hoop strain u_r / r. With axes
+    ordered (r, theta, z) the r-z shear lives in the 13-slot (Mandel index 4);
+    principal-stress models and rotation operators rely on this placement.
+    Pair with a QuadratureDomain ``weight=lambda x: 2*pi*x[:, 0]`` measure."""
+
+    def expr(ctx):
+        g = ctx.grad
+        erz = 0.5 * (g[0, 1] + g[1, 0])
+        z = torch.zeros_like(erz)
+        return torch.stack([g[0, 0], ctx.u[0] / ctx.x[0], g[1, 1], z, SQ2 * erz, z])
+
+    return expr
+
+
+def scalar_value():
+    """Scalar field -> (1,) value (external-state-variable expressions, e.g.
+    the temperature itself in generalized behaviors)."""
+
+    def expr(ctx):
+        return ctx.u[:1]
 
     return expr

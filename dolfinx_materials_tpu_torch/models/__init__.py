@@ -1,11 +1,28 @@
-"""Constitutive model library: the J2 plasticity family of the first slice."""
+"""Constitutive model library: small-strain elasticity, plasticity,
+viscoplasticity and viscoelasticity, with the hardening laws and the
+plane-stress wrapper."""
 
-from .base import Behavior, SmallStrainBehavior  # noqa: F401
-from .elasticity import LinearElasticIsotropic  # noqa: F401
+from .base import Behavior, FiniteStrainBehavior, SmallStrainBehavior  # noqa: F401
+from .conic import (  # noqa: F401
+    HosfordPlasticity,
+    L1RankinePlasticity,
+    RankinePlasticity,
+    l1_rankine_norm,
+    rankine_norm,
+)
+from .elasticity import LinearElasticIsotropic, LinearElasticOrthotropic  # noqa: F401
 from .hardening import (  # noqa: F401
     LinearHardening,
     RambergOsgoodHardening,
     SwiftHardening,
     VoceHardening,
 )
-from .plasticity import vonMisesIsotropicHardening  # noqa: F401
+from .hypotheses import PlaneStress  # noqa: F401
+from .nonlinear_elasticity import RambergOsgoodNonLinearElasticity  # noqa: F401
+from .plasticity import (  # noqa: F401
+    GeneralIsotropicHardening,
+    hosford_norm,
+    vonMisesIsotropicHardening,
+)
+from .viscoelasticity import GeneralizedMaxwell, ZenerViscoelasticity  # noqa: F401
+from .viscoplasticity import GeneralizedStandardMaterial, NortonViscoplasticity  # noqa: F401

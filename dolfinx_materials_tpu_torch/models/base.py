@@ -4,7 +4,11 @@ A behavior maps a dict of differentiable inputs (gradients + external state
 variables) to a dict of fluxes plus a new internal-state dict, and declares
 its signature (gradient, flux and state sizes). A behavior may also supply a
 whole-batch ``batched_update(eps (n,6), state, dt) -> (sig, Ct (n,36),
-state)`` with an analytic tangent; :class:`~..material.Material` uses it.
+state)`` with an analytic tangent; :class:`~..material.Material` prefers it.
+
+Consistent tangents are not part of the protocol: ``Material`` computes every
+declared tangent block in one forward-mode Jacobian pass over the per-point
+update, with implicit-function-theorem roots (ops/newton.py) inside it.
 """
 
 from __future__ import annotations
@@ -33,7 +37,12 @@ class Behavior:
         return blocks + list(self.extra_tangent_blocks)
 
     def constitutive_update(self, inputs: dict, state: dict, dt):
-        """Per-point update ``(inputs, state, dt) -> (fluxes, new_state)``."""
+        """Per-point update ``(inputs, state, dt) -> (fluxes, new_state)``.
+
+        ``inputs`` holds every gradient and external state variable (and any
+        declared material property) as flat tensors of the declared sizes;
+        ``state`` is this behavior's internal-state dict. Must be a pure
+        function of tensors, differentiable with respect to ``inputs``."""
         raise NotImplementedError
 
     @property
@@ -52,4 +61,21 @@ class SmallStrainBehavior(Behavior):
         return {"Stress": sig}, new_state
 
     def small_strain_update(self, eps, state, dt):
+        raise NotImplementedError
+
+
+class FiniteStrainBehavior(Behavior):
+    """Finite-strain mechanics: deformation gradient F (9,) -> PK1 stress
+    (9,), vector convention [11,22,33,12,21,13,31,23,32]. A declaration only:
+    no finite-strain law is ported yet. Subclasses implement
+    ``finite_strain_update(F, state, dt)``."""
+
+    gradients = {"F": 9}
+    fluxes = {"PK1": 9}
+
+    def constitutive_update(self, inputs, state, dt):
+        pk1, new_state = self.finite_strain_update(inputs["F"], state, dt)
+        return {"PK1": pk1}, new_state
+
+    def finite_strain_update(self, F, state, dt):
         raise NotImplementedError

@@ -1,7 +1,9 @@
-"""Isotropic linear elasticity, the elastic backbone of the J2 models."""
+"""Linear elasticity: isotropic (the elastic backbone of the (visco)plastic
+models) and orthotropic in the material frame."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import tensors
@@ -39,3 +41,28 @@ class LinearElasticIsotropic(SmallStrainBehavior):
 
     def small_strain_update(self, eps, state, dt):
         return self.stress(eps), state
+
+
+class LinearElasticOrthotropic(SmallStrainBehavior):
+    """Orthotropic linear elasticity in the material frame (Mandel 6x6
+    stiffness ``C``, numpy float64). Combine with a
+    :class:`~..material.Material` ``rotation_matrix`` to orient the material
+    frame per Gauss point."""
+
+    def __init__(self, E1, E2, E3, nu12, nu13, nu23, G12, G13, G23):
+        S = np.zeros((6, 6))
+        S[0, 0], S[1, 1], S[2, 2] = 1 / E1, 1 / E2, 1 / E3
+        S[0, 1] = S[1, 0] = -nu12 / E1
+        S[0, 2] = S[2, 0] = -nu13 / E1
+        S[1, 2] = S[2, 1] = -nu23 / E2
+        # Mandel shear entries: gamma = sqrt(2) eps_m, tau = sig_m / sqrt(2)
+        S[3, 3], S[4, 4], S[5, 5] = 1 / (2 * G12), 1 / (2 * G13), 1 / (2 * G23)
+        self.C_mat = np.linalg.inv(S)
+
+    @property
+    def C(self):
+        return self.C_mat
+
+    def small_strain_update(self, eps, state, dt):
+        C = torch.as_tensor(self.C_mat, dtype=eps.dtype, device=eps.device)
+        return C @ eps, state

@@ -1,17 +1,18 @@
 """Isotropic hardening laws: callables ``p -> sigma_Y(p)`` on tensors.
 
-Each law the CUDA return map can evaluate in closed form also reports
-``kernel_law() -> (law_id, (a, b, c))``; the ids match
-``csrc/j2_radial_return.cu``. Any other callable (Ramberg-Osgood, a user
-function) runs through the plain PyTorch return map, which differentiates it
-with ``torch.func``.
+The four laws shipped here also report ``kernel_law() -> (law_id, params)``
+(up to four parameters): the CUDA return maps evaluate their value and slope
+in closed form, and the ids match ``csrc/j2_radial_return.cu``. Any other
+callable (a user function) runs through the plain PyTorch return map on the
+CPU, which differentiates it with ``torch.func``; on the card the return maps
+raise for it.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAW_LINEAR, LAW_VOCE, LAW_SWIFT = 0, 1, 2
+LAW_LINEAR, LAW_VOCE, LAW_SWIFT, LAW_RAMBERG_OSGOOD = 0, 1, 2, 3
 
 
 class LinearHardening:
@@ -61,8 +62,8 @@ class SwiftHardening:
 
 class RambergOsgoodHardening:
     """Hardening of a Ramberg-Osgood uniaxial curve,
-    sigma_Y(p) = sig0 * (p E / (alpha sig0))^(1/n), regularized near p = 0.
-    No in-kernel form: it runs through the plain return map."""
+    sigma_Y(p) = sig0 * (max(p, p_eps) E / (alpha sig0))^(1/n): clamped at
+    ``p_eps`` (slope 0 below it) so the power stays differentiable at p = 0."""
 
     def __init__(self, sig0, E, alpha, n, p_eps=1e-12):
         self.sig0 = sig0
@@ -74,3 +75,7 @@ class RambergOsgoodHardening:
     def __call__(self, p):
         x = torch.clamp(p, min=self.p_eps) * self.E / (self.alpha * self.sig0)
         return self.sig0 * x ** (1.0 / self.n)
+
+    def kernel_law(self):
+        k = float(self.E) / (float(self.alpha) * float(self.sig0))
+        return LAW_RAMBERG_OSGOOD, (float(self.sig0), k, 1.0 / float(self.n), float(self.p_eps))

@@ -15,38 +15,22 @@ the kernel's plain version runs the same contract.
 
 from __future__ import annotations
 
-import warnings
-
-from .j2_cuda import J2_FAST_CONTRACT, j2_radial_return, j2_radial_return_reference, kernel_law
+from .j2_cuda import J2_FAST_CONTRACT, j2_radial_return
 
 
 def make_j2_batched_update(elasticity, yield_stress, n_iter=12):
     """Returns ``batched(eps (n,6), state {eps_p (n,6), p (n,)}, dt) ->
     (sig (n,6), Ct_flat (n,36), new_state)``.
 
-    A hardening law with no in-kernel form (Ramberg-Osgood, a user callable)
-    is routed to the plain version by its type, before any launch, and the
-    route is announced once with :class:`PerformanceWarning` on the card.
+    The four hardening laws of models/hardening.py run inside the kernel. A
+    user callable runs on the card only if it reports its closed form through
+    ``kernel_law()``; without one the update raises ``TypeError`` on CUDA
+    tensors (on CPU tensors the plain version takes any callable).
     """
     contract = dict(J2_FAST_CONTRACT, n_iter=n_iter)
-    in_kernel = kernel_law(yield_stress) is not None
-    warned = []
 
     def batched(eps, state, dt):
-        fn = j2_radial_return
-        if eps.is_cuda and not in_kernel:
-            fn = j2_radial_return_reference
-            if not warned:
-                from .. import PerformanceWarning
-
-                warnings.warn(
-                    f"{type(yield_stress).__name__} has no in-kernel form: the "
-                    "J2 return map runs as plain PyTorch on the card",
-                    PerformanceWarning,
-                    stacklevel=2,
-                )
-                warned.append(True)
-        sig, Ct, eps_p, p = fn(
+        sig, Ct, eps_p, p = j2_radial_return(
             eps.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous(),
             elasticity, yield_stress, feature_major=False, **contract,
         )

@@ -1,0 +1,222 @@
+"""Small-system Newton solvers with implicit-function-theorem derivatives.
+
+Counterpart of dolfinx_materials_tpu/ops/newton.py. A constitutive update is
+written for one Gauss point and batched by ``torch.func.vmap``; its tangent
+comes from ``torch.func.jacfwd``. The local root solves inside it must
+therefore (1) run a data-dependent loop although ``vmap`` forbids control
+flow on batched tensors, and (2) give ``jacfwd`` the derivative of the root,
+not of the iteration.
+
+Design: each solver is a ``torch.autograd.Function`` (:class:`_Root`) with
+
+- a hand-written ``vmap`` staticmethod that moves the batch dimension to the
+  front and applies the Function again with one more leading batch axis, so
+  the iteration itself always runs on plain batched tensors: a masked Newton
+  loop with a per-point convergence test that works on the points still
+  active and stops when none is left (``max_iter`` is a bound; points
+  converge in a few steps, and elastic points in none);
+- a ``jvp`` staticmethod that applies the implicit function theorem at the
+  root: one linear solve ``dx = -J_x^{-1} (df/dargs . dargs)`` per tangent
+  direction. The loop is never differentiated, so damping and projection
+  have no effect on the consistent tangents.
+
+A fixed-count loop on detached inputs followed by one differentiable Newton
+step would carry the same derivative with less machinery, but it pays
+``max_iter`` (50-80) residual and Jacobian evaluations for every point of
+every call; the early exit is worth the Function. Reverse mode is not
+written (no caller in the package differentiates a root backwards yet).
+
+Everything that varies per point must reach the residual through ``args``: the
+iteration runs below the ``vmap`` level, where a batched tensor captured by
+closure is out of reach, and only ``args`` get tangents. Python floats and
+unbatched constants may be closed over.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import jacfwd, jvp, vmap
+
+
+def _dense_solve(J, r):
+    """Solve ``J dx = r`` for small dense ``J (..., n, n)``, ``r (..., n)``;
+    a singular ``J`` gives non-finite values, which the callers' residual
+    tests catch, instead of raising for the whole batch. ``J`` is cast to
+    ``r``'s dtype: in float32, forward-mode derivatives of 0-d intermediates
+    come back from ``torch.func`` as float64."""
+    return torch.linalg.solve_ex(J.to(r.dtype), r.unsqueeze(-1), check_errors=False)[0].squeeze(-1)
+
+
+class _Spec:
+    """What one root solve is: the residual and the iteration's constants."""
+
+    def __init__(self, resid_fn, scalar, max_iter, lower=None, max_backtracks=0):
+        self.resid_fn = resid_fn
+        self.scalar = scalar
+        self.max_iter = max_iter
+        self.lower = lower
+        self.max_backtracks = max_backtracks
+
+
+def _norm(r, scalar):
+    return r.abs() if scalar else torch.linalg.norm(r, dim=-1)
+
+
+def _iterate_scalar(spec, x, tol, args):
+    """Masked scalar Newton on flat batches ``x (B,)``, ``args[k] (B, ...)``."""
+    f = spec.resid_fn
+
+    def value_and_slope(x_, *a):
+        return jvp(lambda y: f(y, *a), (x_,), (torch.ones_like(x_),))
+
+    r = vmap(f)(x, *args)
+    active = torch.nonzero(~(r.abs() < tol)).reshape(-1)
+    x = x.clone(memory_format=torch.contiguous_format)  # x0 may be an expanded view
+    it = 0
+    while active.numel() and it < spec.max_iter:
+        xa = x[active]
+        aa = [a[active] for a in args]
+        ra, dra = vmap(value_and_slope)(xa, *aa)
+        xn = xa - ra / dra.to(ra.dtype)
+        if spec.lower is not None:
+            xn = torch.clamp(xn, min=spec.lower)
+        x[active] = xn
+        rn = vmap(f)(xn, *aa)
+        active = active[~(rn.abs() < tol[active])]
+        it += 1
+    return x
+
+
+def _iterate_vector(spec, x, tol, args):
+    """Masked damped Newton on flat batches ``x (B, n)``: full step, then
+    halving while the residual norm does not decrease (or is not finite)."""
+    f = spec.resid_fn
+
+    def jac_and_value(x_, *a):
+        def g(y):
+            r = f(y, *a)
+            return r, r
+
+        return jacfwd(g, has_aux=True)(x_)
+
+    def rnorm(x_, aa):
+        return torch.linalg.norm(vmap(f)(x_, *aa), dim=-1)
+
+    active = torch.nonzero(~(rnorm(x, args) < tol)).reshape(-1)
+    x = x.clone(memory_format=torch.contiguous_format)  # x0 may be an expanded view
+    it = 0
+    while active.numel() and it < spec.max_iter:
+        xa = x[active]
+        aa = [a[active] for a in args]
+        J, r = vmap(jac_and_value)(xa, *aa)
+        dx = _dense_solve(J, r)
+        r_norm = torch.linalg.norm(r, dim=-1)
+        alpha = torch.ones_like(r_norm)
+        rn = rnorm(xa - dx, aa)
+        k = 0
+        while k < spec.max_backtracks:
+            bad = torch.nonzero(~torch.isfinite(rn) | (rn >= r_norm)).reshape(-1)
+            if not bad.numel():
+                break
+            alpha[bad] = 0.5 * alpha[bad]
+            rn[bad] = rnorm(xa[bad] - alpha[bad, None] * dx[bad], [a[bad] for a in aa])
+            k += 1
+        xn = xa - alpha[:, None] * dx
+        x[active] = xn
+        active = active[~(rnorm(xn, aa) < tol[active])]
+        it += 1
+    return x
+
+
+class _Root(torch.autograd.Function):
+    """``x`` with ``resid_fn(x, *args) = 0``; ``nbatch`` leading axes of every
+    tensor argument are batch axes."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(spec, nbatch, x0, tol, *args):
+        batch = x0.shape[:nbatch]
+        flat = lambda t: t.reshape((-1,) + t.shape[nbatch:])  # noqa: E731
+        iterate = _iterate_scalar if spec.scalar else _iterate_vector
+        with torch.no_grad():
+            x = iterate(spec, flat(x0), flat(tol), [flat(a) for a in args])
+        return x.reshape(batch + x.shape[1:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        spec, nbatch, _, _, *args = inputs
+        ctx.spec, ctx.nbatch, ctx.nargs = spec, nbatch, len(args)
+        ctx.save_for_forward(output, *args)
+        ctx.save_for_backward(output, *args)
+
+    @staticmethod
+    def vmap(info, in_dims, spec, nbatch, x0, tol, *args):
+        def front(t, d):
+            if d is None:
+                return t.unsqueeze(0).expand((info.batch_size,) + tuple(t.shape))
+            return t.movedim(d, 0)
+
+        x0, tol, *args = (front(t, d) for t, d in zip((x0, tol, *args), in_dims[2:]))
+        return _Root.apply(spec, nbatch + 1, x0, tol, *args), 0
+
+    @staticmethod
+    def jvp(ctx, _spec, _nbatch, _x0, _tol, *targs):
+        spec = ctx.spec
+        x, *args = ctx.saved_tensors
+        # only floating arguments carry tangents (a bool mask does not)
+        diff = [i for i, a in enumerate(args) if a.is_floating_point() and targs[i] is not None]
+        if not diff:
+            return torch.zeros_like(x)
+
+        def point(x_, args_, tangents_):
+            def of_args(*da):
+                full = list(args_)
+                for i, a in zip(diff, da):
+                    full[i] = a
+                return spec.resid_fn(x_, *full)
+
+            _, fa = jvp(of_args, tuple(args_[i] for i in diff), tuple(tangents_))
+            of_x = lambda y: spec.resid_fn(y, *args_)  # noqa: E731
+            if spec.scalar:
+                _, dr = jvp(of_x, (x_,), (torch.ones_like(x_),))
+                return (-fa / dr).to(x_.dtype)
+            return -_dense_solve(jacfwd(of_x)(x_), fa.to(x_.dtype))
+
+        fn = point
+        for _ in range(ctx.nbatch):
+            fn = vmap(fn)
+        return fn(x, tuple(args), tuple(targs[i] for i in diff))
+
+
+def _solve(spec, x0, args, tol):
+    x0 = torch.as_tensor(x0)
+    like = dict(dtype=x0.dtype, device=x0.device)
+    args = tuple(a if isinstance(a, torch.Tensor) else torch.as_tensor(a, **like) for a in args)
+    tol = torch.as_tensor(tol, **like)
+    x = _Root.apply(spec, 0, x0, tol, *args)
+    r = spec.resid_fn(x, *args)
+    return x, _norm(r, spec.scalar) < tol
+
+
+def newton_solve(resid_fn, x0, args=(), tol=1e-10, max_iter=50, max_backtracks=12):
+    """Solve ``resid_fn(x, *args) = 0`` for a small dense ``x (n,)`` by damped
+    Newton (backtracking on ``|r|``, which nearly piecewise-linear residuals
+    such as conic yield surfaces need: full steps oscillate there).
+
+    Differentiable with respect to ``args`` through the implicit function
+    theorem; written for one point, to be batched by ``torch.func.vmap``.
+    ``tol`` may be a per-point tensor. Returns ``(x, converged)``.
+    """
+    spec = _Spec(resid_fn, False, max_iter, max_backtracks=max_backtracks)
+    return _solve(spec, x0, args, tol)
+
+
+def scalar_newton_solve(resid_fn, x0, args=(), tol=1e-10, max_iter=50, lower=None):
+    """Scalar Newton with implicit-function-theorem derivatives and an
+    optional projection ``x >= lower`` (e.g. a plastic multiplier), applied
+    inside the iteration only, so the fixed point stays the unconstrained
+    root when the solve sits behind a yield check. Returns ``(x, converged)``.
+    """
+    spec = _Spec(resid_fn, True, max_iter, lower=lower)
+    return _solve(spec, x0, args, tol)

@@ -56,15 +56,19 @@ class MaterialStateManager:
         self.internal_state_sizes = {
             k: _leaf_width(v.shape) for k, v in point_state.items()
         }
-        self._isv_slices = _slices(self.internal_state_sizes)
+        # flat-view columns go by sorted name, whatever order an update hands
+        # its state dict back in (the JAX package's pytree flattening sorts
+        # dict keys, so this is also its column order)
+        self._isv_slices = _slices({k: self.internal_state_sizes[k] for k in sorted(point_state)})
         self.internal_size = sum(self.internal_state_sizes.values())
 
     @property
     def internal_state_variables(self) -> torch.Tensor:
-        """Flat ``(n, total_isv)`` view of the internal state."""
+        """Flat ``(n, total_isv)`` view of the internal state, columns by
+        sorted variable name."""
         if not self.internal:
             return torch.zeros((self.n, 0), dtype=self.dtype, device=self.device)
-        return torch.cat([self.internal[k].reshape(self.n, -1) for k in self.internal], dim=1)
+        return torch.cat([self.internal[k].reshape(self.n, -1) for k in self._isv_slices], dim=1)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         if name in self._grad_slices:
@@ -135,12 +139,17 @@ class DataManager:
         self.s1 = self.s0.copy()
 
 
+def from_reference_array(values, dtype=torch.float64, device="cpu") -> torch.Tensor:
+    """One array of the JAX package (a state field, an external state
+    variable, a material-property field) as a tensor of this package."""
+    return torch.as_tensor(np.array(values), dtype=dtype, device=torch.device(device))
+
+
 def from_reference_state(state_dict_of_numpy: dict, dtype=torch.float64, device="cpu") -> dict:
     """State arrays of the JAX package (``Material.get_initial_state_dict()``
-    there: name -> numpy array) as a dict of tensors, ready for this
-    package's ``Material.set_initial_state_dict``."""
-    dev = torch.device(device)
-    return {
-        k: torch.as_tensor(np.array(v), dtype=dtype, device=dev)
-        for k, v in state_dict_of_numpy.items()
-    }
+    there: name -> numpy array, every field flattened to ``(n, width)``) as a
+    dict of tensors, ready for this package's
+    ``Material.set_initial_state_dict``, which gives an array-valued field
+    (Maxwell branches ``epsv (n, branches, 6)``, a GSM's ``alpha``) back its
+    shape."""
+    return {k: from_reference_array(v, dtype, device) for k, v in state_dict_of_numpy.items()}

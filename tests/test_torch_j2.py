@@ -2,7 +2,7 @@
 
 - the j2_fast contract (cold start, 12 iterations, regularizer 1e-14): the
   port's Material fast path against JAX ``make_j2_batched_update``, for every
-  hardening law (Ramberg-Osgood runs the plain path on any device);
+  hardening law;
 - the Pallas contract (warm start, 4 iterations, regularizer 1e-7): the
   kernel wrapper against ``make_j2_pallas_update`` in interpret mode.
 
@@ -115,4 +115,6 @@ def test_wrapper_launches_or_raises_off_cpu():
             torch.empty((1, 128), device="meta")]
     with pytest.raises(ValueError, match="unsupported device"):
         j2_cuda.j2_radial_return(*meta, el, law, **j2_cuda.J2_FAST_CONTRACT)
-    assert j2_cuda.kernel_law(build(tmodels, "ramberg_osgood")[1]) is None
+    # the four shipped laws have an in-kernel form; a user callable has none
+    assert all(j2_cuda.kernel_law(build(tmodels, name)[1]) is not None for name in LAWS)
+    assert j2_cuda.kernel_law(lambda p: SIG0 + 2e3 * p) is None
