@@ -14,13 +14,17 @@ non-zero before the result line is printed:
    plain PyTorch versions at 2^21 points (Linear, Voce, Swift, Ramberg-Osgood;
    the Pallas and j2_fast contracts; f32 and f64), and the expanded factored
    tangent against the full one;
-3. banded take: the streaming and the shared-memory window kernels against the
-   plain version, and against each other (bitwise), on the 128x256 P2 plate's
-   cell, fm and asm plans, in f32 and f64;
+3. banded take: the ELL and CSR gather kernels against the plain version,
+   and bitwise against each other and their own plain version, on the
+   128x256 P2 plate's cell, fm and asm plans and a 64x128 triangle plate's
+   assembly plan with overflow patches, in f32 and f64; each timed per call,
+   on the device (a CUDA graph of back-to-back takes) and on the host;
 4. the J2 plate slice on a 16x32 mesh, 3 load steps, on the card and on the
    CPU: displacement and plastic strain agree to 1e-8, Newton counts equal;
 5. the main path at full width: the 128x256 P2 plate (294,912 Gauss points,
-   263,682 dofs) through ``solve_adaptive``, counting kernel launches;
+   263,682 dofs) through ``solve_adaptive``, counting kernel launches; then
+   CG on the plate's last tangent for a fixed number of iterations: wall ms
+   per iteration, and the device time and busy share from torch.profiler;
 6. the material-point path at that width (the plate's last-step strains and
    state, f64): ``Material.integrate`` (fast path, full-tangent kernel) and
    the factored-tangent kernel against the generic ``vmap(jacfwd)`` update
@@ -35,7 +39,8 @@ non-zero before the result line is printed:
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
 JSON ``{"ok": true, "device": {...}}``. Times are CUDA-event medians on this
-card; bounds use the H100 SXM data-sheet rates in :data:`PEAK`.
+card (``ms`` one call, ``device_ms`` per call of a replayed CUDA graph);
+bounds use the H100 SXM data-sheet rates in :data:`PEAK`.
 """
 
 from __future__ import annotations
@@ -60,6 +65,11 @@ GENERIC_LOADS = (0.0035, 0.007, 0.0105)
 POINT_SUBSET = 4096
 J2_N = 1 << 21
 REPS = 20
+TAKE_GRAPH = 50  # takes captured in one CUDA graph for a device time
+TAKE_HOST = 1000  # un-synchronised takes for a host time
+CG_ITERS = 500  # fixed CG iterations (tolerance 0) per timed solve
+CG_REPS = 3
+CG_PROFILED = 100  # CG iterations under torch.profiler for the device time
 DEVICE = "cuda"
 
 
@@ -239,40 +249,78 @@ def phase_j2():
 
 
 # ------------------------------------------------------------------ phase 3
-def take_bytes(plan, table, windowed):
-    """Inputs read once (table, the plan's int32 base/row/lane arrays, nq for
-    the window kernel, the int64 patch lists) and the output written once."""
-    b = table.numel() * table.element_size() + plan.n_out * table.element_size()
-    for t in (plan.base8, plan.rloc, plan.cloc) + ((plan.nq,) if windowed else ()):
-        b += t.numel() * t.element_size()
-    for pos, idx in plan.patch_layers:
-        b += (pos.numel() + idx.numel()) * 8 + pos.numel() * 2 * table.element_size()
-    return b
+def take_bytes(plan, table):
+    """The work of one take, whatever implements it: the table read once, the
+    output written once and a 4-byte index per entry (kept or patched)."""
+    return (plan.n_src + plan.n_out) * table.element_size() + 4 * take_ops(plan)
 
 
 def take_ops(plan):
-    """One add per kept (slot, layer) entry and per patch."""
-    return int((plan.rloc >= 0).sum()) + sum(len(pos) for pos, _ in plan.patch_layers)
+    """One add per entry: the length of the plan's compact list."""
+    return plan.csr_idx.numel()
+
+
+def window_take_bytes(plan, table):
+    """What a windowed take over the TPU layout (rows, lanes and windows) read
+    per call beyond the table: the 8-byte (row, lane) index of every padded
+    (slot, layer), and the shared-memory windows it staged."""
+    from dolfinx_materials_tpu_torch.ops.banded_gather import LANE
+
+    return 8 * plan.rloc.numel(), int(plan.nq.sum()) * plan.sub * LANE * table.element_size()
 
 
 def take_matrix(plan, dtype):
     """The take as a CSR matrix S (n_out, n_src) of ones, out = S @ table:
     the one-call PyTorch yardstick (cuSPARSE SpMV); never used by the port."""
-    from dolfinx_materials_tpu_torch.ops.banded_gather import LANE
-
-    rl = plan.rloc.reshape(plan.ns, plan.K, plan.C).long()
-    cl = plan.cloc.reshape(plan.ns, plan.K, plan.C).long()
-    col = (plan.base8[:, :, None].long() * plan.sub + rl) * LANE + cl
-    row = (torch.arange(plan.ns * plan.C, device=rl.device).reshape(plan.ns, 1, plan.C)
-           .expand(plan.ns, plan.K, plan.C))
-    keep = (rl >= 0) & (row < plan.n_out)
-    rows = torch.cat([row[keep], plan.patch_pos])
-    cols = torch.cat([col[keep], plan.patch_idx])
+    rows = torch.repeat_interleave(torch.arange(plan.n_out, device=plan.device), plan.csr_ptr.diff().long())
+    cols = plan.csr_idx.long()
     S = torch.sparse_coo_tensor(
         torch.stack([rows, cols]), torch.ones(len(rows), dtype=dtype, device=rows.device),
         (plan.n_out, plan.n_src),
     ).coalesce()
     return S.to_sparse_csr()
+
+
+def graph_ms(fn, n=TAKE_GRAPH):
+    """Device milliseconds per call of ``fn``: ``n`` back-to-back calls
+    captured in one CUDA graph, replayed under CUDA events, divided by n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    t = cuda_ms(g.replay, reps=10, warmup=2) / n
+    del g
+    return t
+
+
+def host_us(fn, n=TAKE_HOST):
+    """Host microseconds per call of ``fn`` over ``n`` un-synchronised calls."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def overflow_plan(nx):
+    """Assembly plan of the nx x 2nx P2 triangle plate with k_quantile 0.01:
+    its max-valence dofs spill into the patch list, with repeated positions,
+    and per-output entry counts of 1 to 6."""
+    from dolfinx_materials_tpu_torch import fem
+    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+
+    V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (LX, LY), (nx, 2 * nx), "triangle"), 2, (2,))
+    return bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256, k_quantile=0.01,
+                                     device=DEVICE)
 
 
 def phase_take(nx):
@@ -286,43 +334,52 @@ def phase_take(nx):
     dom = QuadratureDomain(V, 4, device=DEVICE)
     if dom._banded is None or dom._banded.get("fm") is None:
         raise AssertionError("the plate did not get its cell, fm and asm plans")
-    log(f"[take] {nx}x{2 * nx} P2 plate: plans in {time.perf_counter() - t0:.2f}s")
+    plans = dict(dom._banded, asm_overflow=overflow_plan(nx // 2))
+    log(f"[take] {nx}x{2 * nx} P2 plate (and the {nx // 2}x{nx} triangle plate's asm_overflow): "
+        f"plans in {time.perf_counter() - t0:.2f}s; call_ms: CUDA events around one call; device_ms: "
+        f"{TAKE_GRAPH} calls in one CUDA graph; host_us: {TAKE_HOST} un-synchronised calls")
     tol = {torch.float32: 1e-6, torch.float64: 1e-13}
+    kernels = {"ell": bg.banded_take_ell, "csr": bg.banded_take_csr}
     g = torch.Generator(device=DEVICE).manual_seed(1)
     rows = {}
     for dtype in (torch.float32, torch.float64):
-        for key, plan in dom._banded.items():
+        for key, plan in plans.items():
             table = torch.randn(plan.n_src, generator=g, dtype=torch.float64, device=DEVICE).to(dtype)
-            chosen = bg._best_take(plan, dtype).__name__
-            a = bg.banded_take_streaming(table, plan)
-            b = bg.banded_take_windowed(table, plan)
+            outs = {k: fn(table, plan) for k, fn in kernels.items()}
+            plain = {k: bg.compact_take_reference(table, plan, k) for k in kernels}
             ref = bg.banded_take_reference(table, plan)
             torch.cuda.synchronize()
             scale = float(ref.abs().max())
-            e_s, e_w = rel_err(a, ref, scale), rel_err(b, ref, scale)
-            bitwise = torch.equal(a, b)
+            bitwise = all(torch.equal(outs["ell"], x) for x in (outs["csr"], *plain.values()))
+            err = {k: rel_err(o, ref, scale) for k, o in outs.items()}
             S = take_matrix(plan, dtype)
             e_lib = rel_err(S @ table, ref, scale)
-            ok = bitwise and e_s <= tol[dtype] and e_w <= tol[dtype] and e_lib <= tol[dtype]
-            t_s = cuda_ms(lambda: bg.banded_take_streaming(table, plan))
-            t_w = cuda_ms(lambda: bg.banded_take_windowed(table, plan))
-            t_p = cuda_ms(lambda: bg.banded_take_reference(table, plan))
-            t_l = cuda_ms(lambda: S @ table)
-            b_s = bound_ms(take_bytes(plan, table, False), take_ops(plan), dtype)[0]
-            b_w = bound_ms(take_bytes(plan, table, True), take_ops(plan), dtype)[0]
+            ok = bitwise and all(e <= tol[dtype] for e in (*err.values(), e_lib))
+            index_windowed, staged = window_take_bytes(plan, table)
+            row = dict(
+                err={k: float((o - ref).abs().max()) for k, o in outs.items()},
+                call={k: cuda_ms(lambda: fn(table, plan)) for k, fn in kernels.items()},
+                device={k: graph_ms(lambda: fn(table, plan)) for k, fn in kernels.items()},
+                host={k: host_us(lambda: fn(table, plan)) for k, fn in kernels.items()},
+                t_p=cuda_ms(lambda: bg.banded_take_reference(table, plan)),
+                t_l=cuda_ms(lambda: S @ table),
+                bound=bound_ms(take_bytes(plan, table), take_ops(plan), dtype)[0],
+            )
             log(
-                f"[take] {str(dtype)[6:]:8s} {key:4s} R={plan.R} K={plan.K} C={plan.C} "
-                f"max_nq={plan.max_nq} patches={len(plan.patch_pos)} chosen={chosen} "
-                f"bitwise={bitwise} err stream={e_s:.1e} window={e_w:.1e} csr={e_lib:.1e} "
-                f"stream_ms={t_s:.4f} (bound {b_s:.4f}) window_ms={t_w:.4f} (bound {b_w:.4f}) "
-                f"plain_ms={t_p:.4f} csr_spmv_ms={t_l:.4f} {'ok' if ok else 'FAIL'}"
+                f"[take] {str(dtype)[6:]:8s} {key:12s} n_out={plan.n_out} entries={take_ops(plan)} "
+                f"patches={len(plan.patch_pos)} ell_padding={plan.ell_padding:.4f} "
+                f"index_MB={4e-6 * take_ops(plan):.2f} (windowed: {1e-6 * index_windowed:.2f}, "
+                f"staged {1e-6 * staged:.2f}) "
+                f"chosen={bg._best_take(plan).__name__} bitwise={bitwise} err "
+                + " ".join(f"{k}={v:.1e}" for k, v in err.items()) + f" csr_spmv={e_lib:.1e} | "
+                + " ".join(f"{k}: call_ms={row['call'][k]:.4f} device_ms={row['device'][k]:.4f} "
+                           f"host_us={row['host'][k]:.1f} |" for k in kernels)
+                + f" bound_ms={row['bound']:.4f} plain_ms={row['t_p']:.4f} csr_spmv_ms={row['t_l']:.4f} "
+                f"{'ok' if ok else 'FAIL'}"
             )
             if not ok:
                 raise AssertionError(f"banded take disagrees: {dtype} {key}")
-            rows[(dtype, key)] = dict(
-                err_s=float((a - ref).abs().max()), err_w=float((b - ref).abs().max()),
-                t_s=t_s, t_w=t_w, t_p=t_p, t_l=t_l, b_s=b_s, b_w=b_w,
-            )
+            rows[(dtype, key)] = row
     return rows
 
 
@@ -391,7 +448,7 @@ def reset_counts():
     from dolfinx_materials_tpu_torch.ops import j2_cuda
 
     for fn in (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_factored,
-               bg.banded_take_streaming, bg.banded_take_windowed):
+               bg.banded_take_ell, bg.banded_take_csr):
         fn.launches = 0
 
 
@@ -402,8 +459,8 @@ def read_counts():
     return {
         "j2_radial_return": j2_cuda.j2_radial_return.launches,
         "j2_radial_return_factored": j2_cuda.j2_radial_return_factored.launches,
-        "banded_take_streaming": bg.banded_take_streaming.launches,
-        "banded_take_windowed": bg.banded_take_windowed.launches,
+        "banded_take_ell": bg.banded_take_ell.launches,
+        "banded_take_csr": bg.banded_take_csr.launches,
     }
 
 
@@ -418,7 +475,7 @@ def phase_main(nx, nsteps0=6):
     t0 = time.perf_counter()
     problem, qmap, bc_top, top_y = build_plate(nx, DEVICE)
     dom = qmap.domain
-    chosen = {k: bg._best_take(p, torch.float64).__name__ for k, p in dom._banded.items()}
+    chosen = {k: bg._best_take(p).__name__ for k, p in dom._banded.items()}
     log(
         f"[main] {nx}x{2 * nx} P2 plate: {qmap.num_points} Gauss points, "
         f"{problem.u.space.num_dofs} dofs, set-up {time.perf_counter() - t0:.2f}s, takes {chosen}"
@@ -478,7 +535,72 @@ def phase_main(nx, nsteps0=6):
         raise AssertionError("main path: load program, plasticity, reactions or launch counts wrong")
     # the last step's constitutive inputs: final strain, state before the step
     gradients = qmap._gradient_values(torch.as_tensor(problem.u.x, device=DEVICE))
-    return counts, gradients, last["state"], qmap.material.behavior
+    return counts, gradients, last["state"], qmap.material.behavior, problem
+
+
+def device_busy_ms(fn):
+    """Milliseconds in which the card ran a kernel, copy or set of ``fn()``:
+    the union of torch.profiler's device-event intervals (each kernel counted
+    once, whatever launched it), or None where it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3 if busy > 0 else None
+
+
+def phase_cg(problem):
+    """CG with the plate's two-level preconditioner on the main path's last
+    tangent and a seeded right-hand side, for exactly ``CG_ITERS`` iterations
+    (tolerance 0): host wall ms per iteration (each ends in the stopping
+    test's host sync), CUDA-event ms of one operator and one preconditioner
+    application, take launches per iteration, and the device-busy share:
+    profiled device ms per iteration over the unprofiled wall ms."""
+    from dolfinx_materials_tpu_torch import solvers
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+
+    ndofs = problem.u.space.num_dofs
+    mask = torch.as_tensor(combine_bcs(problem.bcs, ndofs)[0], device=DEVICE)
+    u = problem._tensor(problem.u.x)
+    problem._constitutive_update(u)
+    Kels = problem._element_matrices(u)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    rhs = torch.randn(ndofs, generator=g, dtype=problem.dtype, device=DEVICE)
+    A, b, M = problem._cg_system(Kels, rhs, mask)
+    solvers.cg(A, b, 0.0, 20, M)  # warm-up
+    takes = sum(read_counts()[k] for k in ("banded_take_ell", "banded_take_csr"))
+    per_iter = []
+    for _ in range(CG_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, k = solvers.cg(A, b, 0.0, CG_ITERS, M)
+        torch.cuda.synchronize()
+        per_iter.append(1e3 * (time.perf_counter() - t) / k)
+        if k != CG_ITERS:
+            raise AssertionError(f"CG stopped after {k} of {CG_ITERS} iterations")
+    takes = (sum(read_counts()[k] for k in ("banded_take_ell", "banded_take_csr")) - takes) / (CG_REPS * k)
+    res = float(torch.linalg.norm(A(x) - b) / torch.linalg.norm(b))
+    busy = device_busy_ms(lambda: solvers.cg(A, b, 0.0, CG_PROFILED, M))
+    wall = float(np.median(per_iter))
+    dev_ms = busy / CG_PROFILED if busy is not None else None
+    ok = bool(torch.isfinite(x).all()) and res < 1e-3
+    log(f"[cg] {ndofs} dofs, last tangent, {CG_ITERS} iterations x {CG_REPS}: wall ms per iteration "
+        f"{' '.join(f'{t:.4f}' for t in per_iter)} (median {wall:.4f}); operator_ms={cuda_ms(lambda: A(b)):.4f} "
+        f"preconditioner_ms={cuda_ms(lambda: M(b)):.4f}; take launches per iteration {takes:.2f}; "
+        + (f"device ms per iteration {dev_ms:.4f} ({CG_PROFILED} profiled), busy share {dev_ms / wall:.3f}"
+           if dev_ms is not None else "device time not measured (the profiler recorded no device event)")
+        + f"; relative residual {res:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fixed-iteration CG: non-finite iterate or no decrease of the residual")
 
 
 def time_j2_main(gradients, state, behavior, factored=False):
@@ -503,12 +625,13 @@ def time_j2_main(gradients, state, behavior, factored=False):
         raise AssertionError("J2 kernel disagrees with its plain version on main-path inputs")
     n = gradients.shape[0]
     t_k = cuda_ms(lambda: kernel(*args, **kw))
+    t_d = graph_ms(lambda: kernel(*args, **kw), n=10)
     t_p = cuda_ms(lambda: plain(*args, **kw), reps=5)
     bnd, by = bound_ms(j2_bytes(n, torch.float64, factored),
                        j2_ops_per_point(kw["n_iter"], factored) * n, torch.float64)
     log(f"[j2-main] {'factored' if factored else 'full':8s} {n} points f64 point-major: kernel_ms={t_k:.4f} "
-        f"bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} max_abs_err={err:.2e}")
-    return dict(ms=t_k, plain_ms=t_p, bound_ms=bnd, bound_by=by, max_abs_err=err)
+        f"device_ms={t_d:.4f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} max_abs_err={err:.2e}")
+    return dict(ms=t_k, device_ms=t_d, plain_ms=t_p, bound_ms=bnd, bound_by=by, max_abs_err=err)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -694,7 +817,9 @@ def main():
     j2_worst = phase_j2()
     takes = phase_take(nx_full)
     phase_slice_cpu_vs_card()
-    counts, grads, state, behavior = phase_main(nx_full)
+    counts, grads, state, behavior, problem = phase_main(nx_full)
+    phase_cg(problem)
+    del problem
     k1 = time_j2_main(grads, state, behavior)
     # the factored kernel's path is the material-point one: no FEM path
     # launches it (the JAX package has no element-matrix consumer of it). It
@@ -707,19 +832,22 @@ def main():
 
     keys = ("cell", "fm", "asm")
 
-    def take_row(name, kind, replaces):
-        s = "s" if kind == "stream" else "w"
+    def take_row(name, layout, replaces):
+        def total(f):  # one take of each of the slice's three plans, f64
+            return sum(f(takes[(f64, k)]) for k in keys)
+
         return {
             "name": name, "route": "cuda",
             "source": "dolfinx_materials_tpu_torch/csrc/banded_take.cu",
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(takes[(f64, k)][f"err_{s}"] for k in keys),
-            # one take of each of the slice's three plans, f64
-            "ms": sum(takes[(f64, k)][f"t_{s}"] for k in keys),
-            "plain_ms": sum(takes[(f64, k)]["t_p"] for k in keys),
-            "bound_ms": sum(takes[(f64, k)][f"b_{s}"] for k in keys),
+            "max_abs_err": max(takes[(f64, k)]["err"][layout] for k in keys),
+            "ms": total(lambda r: r["call"][layout]),
+            "device_ms": total(lambda r: r["device"][layout]),
+            "host_us": total(lambda r: r["host"][layout]),
+            "plain_ms": total(lambda r: r["t_p"]),
+            "bound_ms": total(lambda r: r["bound"]),
             "bound_by": "bytes",
-            "library_ms": sum(takes[(f64, k)]["t_l"] for k in keys),
+            "library_ms": total(lambda r: r["t_l"]),
         }
 
     def j2_row(name, replaces, launches, timed, worst):
@@ -728,7 +856,8 @@ def main():
             "source": "dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(timed["max_abs_err"], worst),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "ms": timed["ms"], "device_ms": timed["device_ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"], "library_ms": None,
         }
 
@@ -737,8 +866,8 @@ def main():
                counts["j2_radial_return"], k1, j2_worst["full"]),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
                point_counts["j2_radial_return_factored"], k2, j2_worst["factored"]),
-        take_row("banded_take_streaming", "stream", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
-        take_row("banded_take_windowed", "window", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
+        take_row("banded_take_csr", "csr", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
+        take_row("banded_take_ell", "ell", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -141,7 +141,7 @@ class QuadratureDomain:
         """One planned take: the kernel chosen by ``_best_take`` on CUDA
         tables, the plain version on CPU tables (the wrappers route)."""
         plan = self._banded[key]
-        return bg._best_take(plan, table.dtype)(table.contiguous(), plan)
+        return bg._best_take(plan)(table.contiguous(), plan)
 
     @property
     def banded_active(self):

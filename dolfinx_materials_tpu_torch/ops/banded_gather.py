@@ -4,38 +4,49 @@
 planned once on the host (numpy) and run by a CUDA kernel
 (``csrc/banded_take.cu``) on the card:
 
-- the output slots are cut into chunks; per chunk and per index layer k all
-  indices live in a small window of consecutive 128-wide table rows, so the
-  plan stores a window base per (chunk, layer) and per slot its (row, lane)
-  in the window; the few out-of-window outliers go to a patch list;
+- the planners are the JAX package's: the output slots are cut into chunks;
+  per chunk and per index layer k all indices live in a small window of
+  consecutive 128-wide table rows, so the plan stores a window base per
+  (chunk, layer) and per slot its (row, lane) in the window; the few
+  out-of-window outliers go to a patch list;
 - layered index sets turn scatter-add assembly into a gather: for local slot
   i the cells whose slot i touches dof d form a few (ndofs,) layers over
-  feature-major element values (:func:`plan_slotwise_assembly`).
+  feature-major element values (:func:`plan_slotwise_assembly`);
+- at plan time the window layout and the patch list are folded into one
+  compact list per output of absolute int32 table indices, in the order of
+  the adds of the windowed take (kept layers by ascending k, then the
+  output's patches in list order), stored twice: sliced ELL (slices of 32
+  outputs, slot-fastest, padded with -1) and CSR. The two kernels walk
+  these lists, one launch per take with the patches inside.
 
 Counterparts of dolfinx_materials_tpu/ops/banded_gather.py: the planners are
 copied (arrays as torch tensors on the plan's device), the plain version
-:func:`banded_take_reference` mirrors ``banded_take_xla``, and the two kernel
-wrappers replace the Pallas ``make_banded_take`` / ``make_banded_take_vmem``.
-Patches are applied deterministically: the patch list is grouped at plan time
-into layers of unique output positions, so repeated positions (assembly
-overflow) never race.
+:func:`banded_take_reference` mirrors ``banded_take_xla``, and the kernel
+wrappers :func:`banded_take_ell` and :func:`banded_take_csr` replace the
+Pallas ``make_banded_take_vmem`` / ``make_banded_take``.
+:func:`compact_take_reference` is the plain version of the two kernels: the
+same lists, the same adds in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .cuda_build import check, function
+
 LANE = 128
 SUB = 8  # window rows per sub-block
+WARP = 32  # outputs per ELL slice: one warp reads a slice's slot row at once
 
-#: largest shared-memory window (bytes) the window kernel stages per
-#: (chunk, layer); a plan whose largest occupied window exceeds it runs the
-#: streaming kernel. 96 KB keeps two blocks resident per SM.
-SMEM_WINDOW_BYTES = 96 << 10
+#: largest ELL padding (ELL slots / entries) at which :func:`_best_take`
+#: still picks the ELL kernel. On the H100 the two kernels tie on the
+#: unpadded plans (1.0; ELL ahead by at most 0.0002 ms, inside the spread
+#: between runs) and at 1.78, and CSR is 30 % faster at 2.0 (PERF.md)
+ELL_MAX_PADDING = 1.5
 
 
 @dataclass
@@ -60,6 +71,14 @@ class BandedTakePlan:
     patch_pos: torch.Tensor = None  # (npatch,) int64 output positions of outliers
     patch_idx: torch.Tensor = None  # (npatch,) int64 table indices of outliers
     patch_layers: list = None  # [(pos, idx)] with unique pos per layer
+    # compact lists (see the module docstring), int32
+    ell_ptr: torch.Tensor = None  # (ceil(n_out / WARP) + 1,) first slot of each slice
+    ell_idx: torch.Tensor = None  # (ell_ptr[-1],) entry j of output 32 s + t at ell_ptr[s] + 32 j + t
+    csr_ptr: torch.Tensor = None  # (n_out + 1,) first entry of each output
+    csr_idx: torch.Tensor = None  # (entries,)
+    ell_padding: float = 1.0  # ELL slots / entries
+    # (layout, dtype) -> (ctypes entry point, index pointers), set at first launch
+    _launch_cache: dict = field(default_factory=dict, repr=False)
 
     @property
     def device(self):
@@ -67,8 +86,9 @@ class BandedTakePlan:
 
 
 def _set_patches(plan: BandedTakePlan, pos: np.ndarray, idx: np.ndarray) -> None:
-    """Store the patch list and its grouping into layers of unique output
-    positions (occurrence rank of each position, in list order)."""
+    """Store the patch list, its grouping into layers of unique output
+    positions (occurrence rank of each position, in list order), and the
+    compact lists that fold patches and kept slots together."""
     pos = np.asarray(pos, np.int64)
     idx = np.asarray(idx, np.int64)
     dev = plan.device
@@ -88,6 +108,57 @@ def _set_patches(plan: BandedTakePlan, pos: np.ndarray, idx: np.ndarray) -> None
                 (torch.as_tensor(pos[sel], device=dev), torch.as_tensor(idx[sel], device=dev))
             )
     plan.patch_layers = layers
+    _set_compact(plan, pos, idx)
+
+
+def _set_compact(plan: BandedTakePlan, pos: np.ndarray, idx: np.ndarray) -> None:
+    """Each output's entries as absolute table indices: its kept slots by
+    ascending layer k, then its patches in list order, which is the order of
+    the adds of the windowed take followed by the layer-wise patches."""
+    rl = plan.rloc.cpu().numpy().reshape(plan.ns, plan.K, plan.C)
+    cl = plan.cloc.cpu().numpy().reshape(plan.ns, plan.K, plan.C)
+    base = plan.base8.cpu().numpy().astype(np.int64) * plan.sub
+    s, c, k = np.nonzero(rl.transpose(0, 2, 1) >= 0)  # by output slot, then layer
+    out = np.concatenate([s * plan.C + c, pos])
+    ent = np.concatenate([(base[s, k] + rl[s, k, c]) * LANE + cl[s, k, c], idx])
+    order = np.argsort(out, kind="stable")  # kept slots stay ahead of patches
+    out, ent = out[order], ent[order]
+    n = plan.n_out
+    counts = np.bincount(out, minlength=n)
+    csr_ptr = np.r_[0, np.cumsum(counts)]
+    rank = np.arange(len(out)) - csr_ptr[out]
+    nsl = -(-n // WARP)
+    width = np.zeros(nsl * WARP, np.int64)
+    width[:n] = counts
+    width = width.reshape(nsl, WARP).max(axis=1)
+    ell_ptr = np.r_[0, np.cumsum(width * WARP)]
+    if max(plan.n_src, n, int(ell_ptr[-1])) >= 2**31 - WARP:
+        raise ValueError("banded take: the compact lists need int32 indices and offsets")
+    ell_idx = np.full(int(ell_ptr[-1]), -1, np.int32)
+    ell_idx[ell_ptr[out // WARP] + rank * WARP + out % WARP] = ent
+    dev = plan.device
+
+    def arr(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+
+    plan.ell_ptr, plan.ell_idx = arr(ell_ptr), arr(ell_idx)
+    plan.csr_ptr, plan.csr_idx = arr(csr_ptr), arr(ent)
+    plan.ell_padding = len(ell_idx) / max(1, len(ent))
+    plan._launch_cache = {}
+
+
+def _plan_device(device) -> torch.device:
+    """The plan's device. The take kernels launch on the current CUDA
+    device's current stream and enter no device context, so a CUDA plan must
+    be made on the current device: checked here, once, rather than at the
+    first take."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(
+            f"banded take: plan device {dev} is not the current CUDA device "
+            f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first"
+        )
+    return dev
 
 
 def plan_banded_take(
@@ -100,7 +171,9 @@ def plan_banded_take(
     ``row_quantile``: R is sized for this quantile of the window-row
     distribution; long-range outliers go to the patch list instead of
     inflating every chunk's window. Returns None if more than
-    ``max_patch_frac`` of the entries would need patching."""
+    ``max_patch_frac`` of the entries would need patching. A CUDA
+    ``device`` must be the current CUDA device, as the kernels launch there."""
+    dev = _plan_device(device)
     idx = np.asarray(idx, dtype=np.int64)
     if idx.ndim == 1:
         idx = idx[:, None]
@@ -146,7 +219,6 @@ def plan_banded_take(
     nrows = -(-nrows // sub) * sub
     max_row = np.where(keep, rel_row, -1).max(axis=2)  # (ns, K)
     nq = np.ceil((max_row + 1) / sub).astype(np.int32)
-    dev = torch.device(device)
 
     def arr(a):  # C order: the kernels index the flat buffers
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -236,92 +308,97 @@ def banded_take_reference(table, plan: BandedTakePlan):
     return _apply_patches(plan, out, table)
 
 
-_STREAM = {torch.float32: "banded_take_stream_f32", torch.float64: "banded_take_stream_f64"}
-_WINDOW = {torch.float32: "banded_take_window_f32", torch.float64: "banded_take_window_f64"}
-
-
-def _check_cuda(table, plan, name):
-    if not table.is_cuda:
-        raise ValueError(f"{name}: unsupported device {table.device}")
-    if table.dtype not in _STREAM:
-        raise TypeError(f"{name}: unsupported dtype {table.dtype}")
-    if table.shape != (plan.n_src,) or not table.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous ({plan.n_src},) table, got {tuple(table.shape)}"
-        )
-    if plan.device != table.device:
-        raise ValueError(f"{name}: plan on {plan.device}, table on {table.device}")
-    if not all(t.is_contiguous() for t in (plan.base8, plan.rloc, plan.cloc, plan.nq)):
-        raise ValueError(f"{name}: plan arrays must be contiguous")
+def compact_take_reference(table, plan: BandedTakePlan, layout: str):
+    """Plain PyTorch version of the two kernels: walks ``layout``'s ("ell"
+    or "csr") compact lists entry by entry, adding in the kernels' order, so
+    on the card it is bitwise equal to both."""
+    n = plan.n_out
+    o = torch.arange(n, device=table.device)
+    if layout == "ell":
+        ptr, idx = plan.ell_ptr.long(), plan.ell_idx.long()
+        start = ptr[o // WARP] + o % WARP
+        width = (ptr[o // WARP + 1] - ptr[o // WARP]) // WARP
+        step = WARP
+    elif layout == "csr":
+        ptr, idx = plan.csr_ptr.long(), plan.csr_idx.long()
+        start = ptr[:-1]
+        width = ptr[1:] - start
+        step = 1
+    else:
+        raise ValueError(f"compact_take_reference: unknown layout {layout!r}")
+    acc = torch.zeros(n, dtype=table.dtype, device=table.device)
+    for j in range(int(width.max()) if n else 0):
+        e = idx[(start + j * step).clamp(max=max(len(idx) - 1, 0))]
+        live = (j < width) & (e >= 0)  # ELL pads each row's tail with -1
+        acc = torch.where(live, acc + table[e.clamp(min=0)], acc)
+    return acc
 
 
 SOURCE = "banded_take.cu"
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def banded_take_streaming(table, plan: BandedTakePlan):
-    """Streaming take kernel on CUDA tables (counterpart of the Pallas
-    ``make_banded_take``); plain version on CPU tables."""
+def _launch(table, plan: BandedTakePlan, layout: str, wrapper):
+    """Check ``table`` and launch ``layout``'s kernel once on the current
+    device's current stream (the table and the plan must be on that device);
+    the entry point and the list pointers are cached on the plan."""
+    if table.dtype not in _SUFFIX:
+        raise TypeError(f"{wrapper.__name__}: unsupported dtype {table.dtype}")
+    if table.shape != (plan.n_src,) or not table.is_contiguous():
+        raise ValueError(
+            f"{wrapper.__name__}: expected a contiguous ({plan.n_src},) table, got {tuple(table.shape)}"
+        )
+    dev = table.device.index
+    if not table.is_cuda or dev != torch.cuda.current_device():
+        raise ValueError(f"{wrapper.__name__}: table on {table.device}, not on the current CUDA device")
+    if plan.device != table.device:
+        raise ValueError(f"{wrapper.__name__}: plan on {plan.device}, table on {table.device}")
+    cached = plan._launch_cache.get((layout, table.dtype))
+    if cached is None:
+        vp = ctypes.c_void_p
+        fn = function(SOURCE, f"banded_take_{layout}_{_SUFFIX[table.dtype]}",
+                      [vp, vp, vp, vp, ctypes.c_int, vp])
+        ptr, idx = (plan.ell_ptr, plan.ell_idx) if layout == "ell" else (plan.csr_ptr, plan.csr_idx)
+        cached = plan._launch_cache[(layout, table.dtype)] = (fn, ptr.data_ptr(), idx.data_ptr())
+    fn, ptr, idx = cached
+    out = torch.empty(plan.n_out, dtype=table.dtype, device=table.device)
+    # the current stream's raw handle, as PyTorch's generated kernel launchers
+    # take it: torch.cuda.current_stream() builds a Stream object, which costs
+    # more host time than the whole launch (PERF.md)
+    rc = fn(table.data_ptr(), ptr, idx, out.data_ptr(), plan.n_out,
+            torch._C._cuda_getCurrentRawStream(dev))
+    check(rc, SOURCE, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def banded_take_ell(table, plan: BandedTakePlan):
+    """The take as one gather kernel over the sliced-ELL lists on CUDA
+    tables (counterpart of the Pallas ``make_banded_take_vmem``); the plain
+    version on CPU tables. A CUDA table and its plan must be on the current
+    CUDA device."""
     if table.device.type == "cpu":
         return banded_take_reference(table, plan)
-    _check_cuda(table, plan, "banded_take_streaming")
-    from .cuda_build import check, function
-
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = function(SOURCE, _STREAM[table.dtype], [vp] * 5 + [ctypes.c_longlong, ci, ci, ci, vp])
-    out = torch.empty(plan.n_out, dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(
-            table.data_ptr(), plan.base8.data_ptr(), plan.rloc.data_ptr(),
-            plan.cloc.data_ptr(), out.data_ptr(), plan.n_out, plan.K, plan.C,
-            plan.sub, stream,
-        )
-    check(rc, SOURCE, "banded_take_streaming")
-    banded_take_streaming.launches += 1
-    return _apply_patches(plan, out, table)
+    return _launch(table, plan, "ell", banded_take_ell)
 
 
-banded_take_streaming.launches = 0
+banded_take_ell.launches = 0
 
 
-def window_bytes(plan: BandedTakePlan, dtype) -> int:
-    """Shared memory the window kernel needs for ``plan``'s largest window."""
-    return plan.max_nq * plan.sub * LANE * torch.empty((), dtype=dtype).element_size()
-
-
-def banded_take_windowed(table, plan: BandedTakePlan):
-    """Shared-memory window take kernel on CUDA tables (counterpart of the
-    Pallas ``make_banded_take_vmem``); plain version on CPU tables."""
+def banded_take_csr(table, plan: BandedTakePlan):
+    """The take as one gather kernel over the CSR lists on CUDA tables
+    (counterpart of the Pallas ``make_banded_take``), for plans whose
+    per-output entry counts are uneven; the plain version on CPU tables. A
+    CUDA table and its plan must be on the current CUDA device."""
     if table.device.type == "cpu":
         return banded_take_reference(table, plan)
-    _check_cuda(table, plan, "banded_take_windowed")
-    if plan.C > 2048:
-        raise ValueError(f"banded_take_windowed: chunk {plan.C} > 2048")
-    from .cuda_build import check, function
-
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = function(SOURCE, _WINDOW[table.dtype],
-                  [vp, ctypes.c_longlong] + [vp] * 5 + [ctypes.c_longlong] + [ci] * 5 + [vp])
-    out = torch.empty(plan.n_out, dtype=table.dtype, device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(
-            table.data_ptr(), plan.n_src, plan.base8.data_ptr(), plan.nq.data_ptr(),
-            plan.rloc.data_ptr(), plan.cloc.data_ptr(), out.data_ptr(), plan.n_out,
-            plan.ns, plan.K, plan.C, plan.sub, plan.max_nq * plan.sub, stream,
-        )
-    check(rc, SOURCE, "banded_take_windowed")
-    banded_take_windowed.launches += 1
-    return _apply_patches(plan, out, table)
+    return _launch(table, plan, "csr", banded_take_csr)
 
 
-banded_take_windowed.launches = 0
+banded_take_csr.launches = 0
 
 
-def _best_take(plan: BandedTakePlan, dtype):
-    """Kernel selection: the window kernel when the plan's largest window fits
-    :data:`SMEM_WINDOW_BYTES` (and its chunk one block), the streaming kernel
-    otherwise."""
-    if plan.C <= 2048 and window_bytes(plan, dtype) <= SMEM_WINDOW_BYTES:
-        return banded_take_windowed
-    return banded_take_streaming
+def _best_take(plan: BandedTakePlan):
+    """Kernel selection: ELL unless its padding exceeds
+    :data:`ELL_MAX_PADDING`, then CSR."""
+    return banded_take_ell if plan.ell_padding <= ELL_MAX_PADDING else banded_take_csr

@@ -291,6 +291,21 @@ class NonlinearMaterialProblem:
 
         return M
 
+    def _cg_system(self, Kels, rhs, mask):
+        """``(A, b, M)`` for CG on J du = rhs with bc rows/cols as identity:
+        the matrix-free operator, the right-hand side and the preconditioner."""
+        zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
+        Kprep = [t["qmap"].domain.spmv_prepare(K_e) for t, K_e in zip(self._terms, Kels)]
+
+        def Av(v):
+            v0 = torch.where(mask, zero, v)
+            y = torch.zeros_like(v)
+            for t, K_p in zip(self._terms, Kprep):
+                y = y + t["qmap"].domain.spmv(K_p, v0)
+            return torch.where(mask, v, y)
+
+        return Av, torch.where(mask, zero, rhs), self._preconditioner(Kels, mask)
+
     def _linear_solve(self, Kels, rhs, mask):
         """Solve J du = rhs with bc rows/cols as identity (du[bc] = 0)."""
         tol = self.ksp_rtol
@@ -312,18 +327,7 @@ class NonlinearMaterialProblem:
             b = torch.where(mask, zero, rhs).cpu().numpy()
             return self._tensor(spla.spsolve(A.tocsr(), b)), 0
 
-        Kprep = [t["qmap"].domain.spmv_prepare(K_e) for t, K_e in zip(self._terms, Kels)]
-
-        def Av(v):
-            v0 = torch.where(mask, zero, v)
-            y = torch.zeros_like(v)
-            for t, K_p in zip(self._terms, Kprep):
-                y = y + t["qmap"].domain.spmv(K_p, v0)
-            return torch.where(mask, v, y)
-
-        M = self._preconditioner(Kels, mask)
-
-        b = torch.where(mask, zero, rhs)
+        Av, b, M = self._cg_system(Kels, rhs, mask)
         du, its = cg(Av, b, tol, self.ksp_maxiter, M)
         # Krylov quality guard: a (near-)singular tangent can make CG return
         # garbage; fall back to a preconditioned gradient step then

@@ -7,13 +7,15 @@ neither JAX nor the JAX package, so it runs where the card is:
 
 Tolerances: the two J2 kernels (full and factored tangent) to 1e-10 of each
 field's scale in f64, and to the Pallas kernel's own test tolerances in f32
-(tests/test_pallas_j2.py); the take kernels to 1e-13 (f64) / 1e-6 (f32) of the plain version, and bitwise
-to each other (both add the layers in the same order).
+(tests/test_pallas_j2.py); the take kernels to 1e-13 (f64) / 1e-6 (f32) of
+the plain version, and bitwise to each other and to
+``compact_take_reference`` (all three add each output's entries in one order).
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import dolfinx_materials_tpu_torch as tdm
 from dolfinx_materials_tpu_torch import fem, models
@@ -123,7 +125,7 @@ def test_j2_wrapper_raises_instead_of_falling_back(card):
             wrapper(*(a.half() for a in args), el, LAWS["voce"], **j2_cuda.J2_FAST_CONTRACT)
 
 
-def test_ramberg_osgood_runs_plain_on_the_card_with_a_warning(card):
+def test_law_without_kernel_form_raises_on_the_card(card):
     """A user callable with no closed form raises on the card, through the
     fast path of Material.integrate too, launches nothing and still runs on
     the CPU (the Ramberg-Osgood law itself runs inside the kernel, see
@@ -167,8 +169,12 @@ def test_generic_update_card_matches_cpu(card, name):
         assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
 
 
+def plate_space():
+    return fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
+
+
 def plate_plans(card):
-    V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
+    V = plate_space()
     dm, n = V.dofmap, V.num_dofs
     Vt = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "triangle"), 2, (2,))
     return {
@@ -186,15 +192,79 @@ def plate_plans(card):
 def test_take_kernels_match_plain_and_each_other(card, dtype, kind):
     plan = plate_plans(card)[kind]
     table = torch.as_tensor(np.random.default_rng(3).standard_normal(plan.n_src), dtype=dtype, device=card)
-    s0, w0 = bg.banded_take_streaming.launches, bg.banded_take_windowed.launches
-    a = bg.banded_take_streaming(table, plan)
-    b = bg.banded_take_windowed(table, plan)
-    assert (bg.banded_take_streaming.launches, bg.banded_take_windowed.launches) == (s0 + 1, w0 + 1)
+    e0, c0 = bg.banded_take_ell.launches, bg.banded_take_csr.launches
+    a = bg.banded_take_ell(table, plan)
+    b = bg.banded_take_csr(table, plan)
+    assert (bg.banded_take_ell.launches, bg.banded_take_csr.launches) == (e0 + 1, c0 + 1)
+    plain = [bg.compact_take_reference(table, plan, layout) for layout in ("ell", "csr")]
     ref = bg.banded_take_reference(table, plan)
     torch.cuda.synchronize()
-    assert torch.equal(a, b)
+    assert all(torch.equal(a, x) for x in [b, *plain])
     tol = 1e-13 if dtype == torch.float64 else 1e-6
     assert float((a - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+class _Ops(TorchDispatchMode):
+    """Records every PyTorch operator called inside the ``with`` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("wrapper", ["banded_take_ell", "banded_take_csr"])
+@pytest.mark.parametrize("kind", ["cell", "asm_overflow"])
+def test_take_is_one_launch_with_no_patch_step(card, wrapper, kind):
+    """A take on a plan with patches (repeated positions for asm_overflow)
+    adds one to its wrapper's launch count and calls no PyTorch operator
+    besides the output's allocation: no patch step follows the kernel."""
+    plan = plate_plans(card)[kind]
+    assert len(plan.patch_pos) > 0
+    take = getattr(bg, wrapper)
+    table = torch.as_tensor(np.random.default_rng(4).standard_normal(plan.n_src), device=card)
+    take(table, plan)  # first call: loads the library and caches the entry point
+    before = take.launches
+    with _Ops() as log:
+        out = take(table, plan)
+    assert take.launches == before + 1
+    assert log.ops == ["aten.empty.memory_format"]
+    want = bg.banded_take_reference(table, plan)
+    assert float((out - want).abs().max()) <= 1e-13 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("wrapper", ["banded_take_ell", "banded_take_csr"])
+def test_take_wrappers_raise_instead_of_falling_back(card, wrapper):
+    take = getattr(bg, wrapper)
+    plan = plate_plans(card)["asm"]
+    table = torch.zeros(plan.n_src, dtype=torch.float64, device=card)
+    before = take.launches
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        take(table.half(), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        take(torch.zeros(2 * plan.n_src, dtype=torch.float64, device=card)[::2], plan)
+    with pytest.raises(ValueError, match="expected"):
+        take(table[:-1], plan)
+    V = plate_space()
+    cpu_plan = bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256)
+    with pytest.raises(ValueError, match="plan on cpu"):
+        take(table, cpu_plan)
+    assert take.launches == before
+
+
+def test_plan_off_the_current_device_raises_when_planned(card):
+    """The takes launch on the current device and enter no device context:
+    a plan for another CUDA device is refused when it is made, not at its
+    first take."""
+    V = plate_space()
+    other = f"cuda:{torch.cuda.current_device() + 1}"
+    with pytest.raises(ValueError, match="not the current CUDA device"):
+        bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256, device=other)
+    with pytest.raises(ValueError, match="not the current CUDA device"):
+        bg.plan_banded_take(V.dofmap.ravel(), V.num_dofs, chunk=2048, max_R=256, device=other)
 
 
 def test_plate_steps_card_match_cpu(card):
