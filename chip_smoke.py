@@ -9,11 +9,15 @@ It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
 (sm_90a) into ``build/kernels/`` and runs seven phases; any failure exits
 non-zero before the result line is printed:
 
-1. build: every kernel, with the compiler's register report;
+1. build: every kernel, with the compiler's register report per template
+   instantiation;
 2. J2: the two return-map kernels (full and factored tangent) against their
-   plain PyTorch versions at 2^21 points (Linear, Voce, Swift, Ramberg-Osgood;
-   the Pallas and j2_fast contracts; f32 and f64), and the expanded factored
-   tangent against the full one;
+   plain PyTorch versions at 2^21 points, feature- and point-major (Linear,
+   Voce, Swift, Ramberg-Osgood; the Pallas and j2_fast contracts; f32 and
+   f64), the two layouts bitwise against each other, the expanded factored
+   tangent against the full one, each row timed per call, on the device and
+   on the host; then 1 to 4,099 points on arrays that start one element into
+   their storage (the tail and alignment routes);
 3. banded take: the ELL and CSR gather kernels against the plain version,
    and bitwise against each other and their own plain version, on the
    128x256 P2 plate's cell, fm and asm plans and a 64x128 triangle plate's
@@ -39,13 +43,15 @@ non-zero before the result line is printed:
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
 JSON ``{"ok": true, "device": {...}}``. Times are CUDA-event medians on this
-card (``ms`` one call, ``device_ms`` per call of a replayed CUDA graph);
-bounds use the H100 SXM data-sheet rates in :data:`PEAK`.
+card (``ms`` one call, ``device_ms`` per call of a replayed CUDA graph) and
+host microseconds per un-synchronised call (``host_us``); bounds use the
+H100 SXM data-sheet rates in :data:`PEAK`.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +70,9 @@ SLICE_LOADS = (0.0025, 0.005, 0.0075)
 GENERIC_LOADS = (0.0035, 0.007, 0.0105)
 POINT_SUBSET = 4096
 J2_N = 1 << 21
+J2_RAGGED = (1, 31, 129, 4099)  # point counts of the tail and alignment check
+J2_GRAPH = 10  # J2 calls captured in one CUDA graph for a device time
+J2_HOST = 200  # un-synchronised J2 calls for a host time
 REPS = 20
 TAKE_GRAPH = 50  # takes captured in one CUDA graph for a device time
 TAKE_HOST = 1000  # un-synchronised takes for a host time
@@ -106,6 +115,21 @@ def rel_err(a, b, scale):
 
 
 # ------------------------------------------------------------------ phase 1
+def kernel_name(mangled):
+    """A readable name for the ptxas report of this repository's kernel
+    templates (their mangled template arguments); others as mangled."""
+    dt = {"f": "f32", "d": "f64"}
+    m = re.search(r"j2_radial_return_kernelI([fd])Lb([01])ELb([01])E", mangled)
+    if m:
+        form = "factored" if m.group(2) == "1" else "full"
+        layout = "feature-major" if m.group(3) == "1" else "point-major"
+        return f"j2_radial_return_kernel<{dt[m.group(1)]}, {form}, {layout}>"
+    m = re.search(r"compact_take_kernelI([fd])Lb([01])E", mangled)
+    if m:
+        return f"compact_take_kernel<{dt[m.group(1)]}, {'ell' if m.group(2) == '1' else 'csr'}>"
+    return mangled
+
+
 def phase_build():
     from dolfinx_materials_tpu_torch.ops import cuda_build
 
@@ -114,8 +138,11 @@ def phase_build():
     for src, text in logs.items():
         log(f"[build] {src} -> {cuda_build.library_path(src)}")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build]   {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                log(f"[build]   {kernel_name(entry.group(1))}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build]     {line.strip()}")
     log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.2f}s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,7 +199,52 @@ def feature_major(eps, eps_p, p, dtype):
     return tuple(t.to(dtype).contiguous() for t in (eps.T, eps_p.T, p[None, :]))
 
 
+def point_major(eps, eps_p, p, dtype):
+    return tuple(t.to(dtype).contiguous() for t in (eps, eps_p, p))
+
+
+def at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage (one element: a data pointer off the 16-byte grid)."""
+    out = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:].view(t.shape)
+    return out.copy_(t)
+
+
+def as_point_major(out):
+    """A feature-major kernel result in the point-major layout (views)."""
+    return out[0].T, out[1].T, out[2].T, out[3][0]
+
+
+#: J2 tolerances: f64 to 1e-10 of each field's scale; f32 as the Pallas
+#: kernel's own test (tests/test_pallas_j2.py). The tangent column holds Ct
+#: for the full kernel and fac = [2 mu beta, gamma] for the factored one,
+#: both on the scale of E. The expanded factored tangent against the full
+#: kernel's Ct: 1e-5 E in f32, 1e-12 E in f64 (the two take nbar from the
+#: trial and from the returned stress).
+J2_TOL = {
+    torch.float64: dict(sig=1e-10, tangent=1e-10, state=1e-10, expand=1e-12),
+    torch.float32: dict(sig=2e-4, tangent=5e-4, state=1e-6, expand=1e-5),
+}
+
+
+def j2_errors(out, ref, dtype):
+    """Errors of a J2 kernel's outputs against its plain version's, on the
+    scales of :data:`J2_TOL`."""
+    f64 = dtype == torch.float64
+    return dict(
+        sig=rel_err(out[0], ref[0], ref[0].abs().max()),
+        tangent=rel_err(out[1], ref[1], E),
+        # f64: relative to each state field's own scale; f32: absolute
+        state=max(rel_err(o, r, r.abs().max() if f64 else 1.0) for o, r in zip(out[2:], ref[2:])),
+    )
+
+
 def phase_j2():
+    """Both J2 kernels in both layouts against their plain versions at 2^21
+    points (four laws, two contracts, f32 and f64), the layouts bitwise
+    against each other, each row timed per call, on the device and on the
+    host; then the ragged and misaligned sizes. Returns the worst f64 error
+    of each kernel."""
     from dolfinx_materials_tpu_torch.models import (
         LinearElasticIsotropic, LinearHardening, RambergOsgoodHardening, SwiftHardening,
         VoceHardening,
@@ -187,65 +259,100 @@ def phase_j2():
         "ramberg": RambergOsgoodHardening(SIG0, E, 2e-3, 5.0),
     }
     contracts = {"pallas": j2_cuda.PALLAS_CONTRACT, "j2_fast": j2_cuda.J2_FAST_CONTRACT}
-    # tolerances: f64 to 1e-10 of each field's scale; f32 as the Pallas
-    # kernel's own test (tests/test_pallas_j2.py). The tangent column holds Ct
-    # for the full kernel and fac = [2 mu beta, gamma] for the factored one,
-    # both on the scale of E. The expanded factored tangent against the full
-    # kernel's Ct: 1e-5 E in f32, 1e-12 E in f64 (the two take nbar from the
-    # trial and from the returned stress).
-    tol = {
-        torch.float64: dict(sig=1e-10, tangent=1e-10, state=1e-10, expand=1e-12),
-        torch.float32: dict(sig=2e-4, tangent=5e-4, state=1e-6, expand=1e-5),
-    }
-    kernels = {
-        "full": (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_reference),
-        "factored": (j2_cuda.j2_radial_return_factored, j2_cuda.j2_radial_return_factored_reference),
-    }
-    log(f"[j2] {J2_N} points, feature-major; times are medians of {REPS} CUDA-event reps")
+    log(f"[j2] {J2_N} points, feature- and point-major; call_ms: CUDA events around one call (median of "
+        f"{REPS}); device_ms: {J2_GRAPH} calls in one CUDA graph; host_us: {J2_HOST} un-synchronised calls; "
+        "bitwise: point-major outputs equal to the feature-major ones")
     worst = {"full": 0.0, "factored": 0.0}
     base = j2_inputs(J2_N, 0, DEVICE)
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         for lname, law in laws.items():
-            eps, eps_p, p = feature_major(off_yield_surface(*base, el, law), base[1], base[2], dtype)
+            eps = off_yield_surface(*base, el, law)
+            layouts = {"feature": feature_major(eps, base[1], base[2], dtype),
+                       "point": point_major(eps, base[1], base[2], dtype)}
+            del eps
             for cname, c in contracts.items():
-                outs = {}
-                for kname, (kernel, plain) in kernels.items():
+                full_ct = {}
+                for kname in ("full", "factored"):
                     factored = kname == "factored"
-                    out = outs[kname] = kernel(eps, eps_p, p, el, law, **c)
-                    ref = plain(eps, eps_p, p, el, law, **c)
-                    torch.cuda.synchronize()
-                    errs = dict(
-                        sig=rel_err(out[0], ref[0], ref[0].abs().max()),
-                        tangent=rel_err(out[1], ref[1], E),
-                        # f64: relative to each state field's own scale; f32: absolute
-                        state=max(rel_err(o, r, r.abs().max() if f64 else 1.0)
-                                  for o, r in zip(out[2:], ref[2:])),
-                    )
-                    if factored:
-                        Ct = j2_cuda.expand_factored_tangent(el, out[0], out[1])
-                        errs["expand"] = rel_err(Ct, outs["full"][1], E)
-                        del Ct
-                    plastic = float((ref[3] > p).double().mean())
-                    ok = all(errs[k] <= tol[dtype][k] for k in errs) and plastic >= 0.2  # the batch must mix elastic and plastic points
-                    if f64:
-                        worst[kname] = max(worst[kname],
-                                           max(float((o - r).abs().max()) for o, r in zip(out, ref)))
-                    del ref
-                    t_k = cuda_ms(lambda: kernel(eps, eps_p, p, el, law, **c))
-                    t_p = cuda_ms(lambda: plain(eps, eps_p, p, el, law, **c), reps=5)
-                    bnd, by = bound_ms(j2_bytes(J2_N, dtype, factored),
-                                       j2_ops_per_point(c["n_iter"], factored) * J2_N, dtype)
-                    log(
-                        f"[j2] {kname:8s} {str(dtype)[6:]:8s} {lname:7s} {cname:8s} plastic={plastic:.3f} err "
-                        + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
-                        + f" kernel_ms={t_k:.4f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} "
-                        f"{'ok' if ok else 'FAIL'}"
-                    )
-                    if not ok:
-                        raise AssertionError(
-                            f"J2 {kname} kernel disagrees with its plain version: {dtype} {lname} {cname}")
+                    launch = j2_cuda.J2Launch(el, law, factored=factored, **c)
+                    outs = {}
+                    for layout, args in layouts.items():
+                        fm = layout == "feature"
+                        out = outs[layout] = launch(*args, feature_major=fm)
+                        ref = launch.plain(*args, el, law, feature_major=fm, **c)
+                        torch.cuda.synchronize()
+                        errs = j2_errors(out, ref, dtype)
+                        if factored:
+                            Ct = j2_cuda.expand_factored_tangent(el, out[0], out[1], feature_major=fm)
+                            errs["expand"] = rel_err(Ct, full_ct.pop(layout), E)
+                            del Ct
+                        else:
+                            full_ct[layout] = out[1]
+                        plastic = float((ref[3] > args[2]).double().mean())
+                        if f64:
+                            worst[kname] = max(worst[kname],
+                                               max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+                        del ref
+                        bitwise = layout == "feature" or all(
+                            torch.equal(a, b) for a, b in zip(out, as_point_major(outs["feature"])))
+                        # the batch must mix elastic and plastic points
+                        ok = all(errs[k] <= J2_TOL[dtype][k] for k in errs) and plastic >= 0.2 and bitwise
+
+                        def call():
+                            return launch(*args, feature_major=fm)
+
+                        row = dict(
+                            call=cuda_ms(call), device=graph_ms(call, n=J2_GRAPH), host=host_us(call, n=J2_HOST),
+                            plain=cuda_ms(lambda: launch.plain(*args, el, law, feature_major=fm, **c), reps=5),
+                            bound=bound_ms(j2_bytes(J2_N, dtype, factored),
+                                           j2_ops_per_point(c["n_iter"], factored) * J2_N, dtype),
+                        )
+                        log(
+                            f"[j2] {kname:8s} {str(dtype)[6:]:8s} {lname:7s} {cname:8s} {layout:7s} "
+                            f"plastic={plastic:.3f} err " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                            + f" call_ms={row['call']:.4f} device_ms={row['device']:.4f} host_us={row['host']:.1f} "
+                            f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) plain_ms={row['plain']:.3f}"
+                            + ("" if layout == "feature" else f" bitwise={bitwise}") + f" {'ok' if ok else 'FAIL'}"
+                        )
+                        if not ok:
+                            raise AssertionError(f"J2 {kname} kernel disagrees with its plain version or "
+                                                 f"across layouts: {dtype} {lname} {cname} {layout}")
+                    del outs
+            del layouts
+    phase_j2_ragged(el, laws["voce"])
     return worst
+
+
+def phase_j2_ragged(el, law):
+    """Both kernels, both layouts, f32 and f64, at point counts that leave a
+    partial tile and slabs off the 16-byte grid, on arrays that start at the
+    storage's first element and at its second (the kernel's element-wise
+    route), against the plain versions (j2_fast contract)."""
+    from dolfinx_materials_tpu_torch.ops import j2_cuda
+
+    worst = {}
+    for n in J2_RAGGED:
+        base = j2_inputs(n, n, DEVICE)
+        for offset in (0, 1):
+            for dtype in (torch.float32, torch.float64):
+                for layout, make in (("feature", feature_major), ("point", point_major)):
+                    fm = layout == "feature"
+                    args = [at_offset(t, offset) for t in make(*base, dtype)]
+                    for factored in (False, True):
+                        launch = j2_cuda.J2Launch(el, law, factored=factored, **j2_cuda.J2_FAST_CONTRACT)
+                        out = launch(*args, feature_major=fm)
+                        errs = j2_errors(out, launch.plain(*args, el, law, feature_major=fm,
+                                                           **j2_cuda.J2_FAST_CONTRACT), dtype)
+                        torch.cuda.synchronize()
+                        if not all(errs[k] <= J2_TOL[dtype][k] for k in errs):
+                            raise AssertionError(f"J2 kernel (factored={factored}) disagrees with its plain "
+                                                 f"version: n={n} offset={offset} {dtype} {layout} {errs}")
+                        for k, v in errs.items():
+                            worst[(dtype, k)] = max(worst.get((dtype, k), 0.0), v)
+    log(f"[j2] ragged and misaligned: n in {J2_RAGGED}, storage offset 0 and 1 element, both kernels, both "
+        "layouts, j2_fast contract, Voce: worst err "
+        + " ".join(f"{str(d)[6:]}:{k}={v:.2e}" for (d, k), v in sorted(worst.items(), key=str)) + " ok")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -610,28 +717,31 @@ def time_j2_main(gradients, state, behavior, factored=False):
     launches are comparisons and timings, not a path's."""
     from dolfinx_materials_tpu_torch.ops import j2_cuda
 
-    kernel, plain = (
-        (j2_cuda.j2_radial_return_factored, j2_cuda.j2_radial_return_factored_reference)
-        if factored else (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_reference)
-    )
     el, law = behavior.elasticity, behavior.yield_stress
-    args = (gradients.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous(), el, law)
-    kw = dict(j2_cuda.J2_FAST_CONTRACT, feature_major=False)
-    out = kernel(*args, **kw)
-    ref = plain(*args, **kw)
+    # built once, as the fast path holds its launch (ops/j2_fast.py)
+    launch = j2_cuda.J2Launch(el, law, factored=factored, **j2_cuda.J2_FAST_CONTRACT)
+    args = (gradients.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous())
+
+    def call():
+        return launch(*args, feature_major=False)
+
+    out = call()
+    ref = launch.plain(*args, el, law, feature_major=False, **j2_cuda.J2_FAST_CONTRACT)
     err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     scale = float(ref[0].abs().max())
     if rel_err(out[0], ref[0], scale) > 1e-10 or rel_err(out[1], ref[1], E) > 1e-10:
         raise AssertionError("J2 kernel disagrees with its plain version on main-path inputs")
     n = gradients.shape[0]
-    t_k = cuda_ms(lambda: kernel(*args, **kw))
-    t_d = graph_ms(lambda: kernel(*args, **kw), n=10)
-    t_p = cuda_ms(lambda: plain(*args, **kw), reps=5)
+    t_k = cuda_ms(call)
+    t_d = graph_ms(call, n=J2_GRAPH)
+    t_h = host_us(call, n=J2_HOST)
+    t_p = cuda_ms(lambda: launch.plain(*args, el, law, feature_major=False, **j2_cuda.J2_FAST_CONTRACT), reps=5)
     bnd, by = bound_ms(j2_bytes(n, torch.float64, factored),
-                       j2_ops_per_point(kw["n_iter"], factored) * n, torch.float64)
-    log(f"[j2-main] {'factored' if factored else 'full':8s} {n} points f64 point-major: kernel_ms={t_k:.4f} "
-        f"device_ms={t_d:.4f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} max_abs_err={err:.2e}")
-    return dict(ms=t_k, device_ms=t_d, plain_ms=t_p, bound_ms=bnd, bound_by=by, max_abs_err=err)
+                       j2_ops_per_point(j2_cuda.J2_FAST_CONTRACT["n_iter"], factored) * n, torch.float64)
+    log(f"[j2-main] {'factored' if factored else 'full':8s} {n} points f64 point-major: call_ms={t_k:.4f} "
+        f"device_ms={t_d:.4f} host_us={t_h:.1f} bound_ms={bnd:.4f} ({by}) plain_ms={t_p:.3f} "
+        f"max_abs_err={err:.2e}")
+    return dict(ms=t_k, device_ms=t_d, host_us=t_h, plain_ms=t_p, bound_ms=bnd, bound_by=by, max_abs_err=err)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -856,8 +966,8 @@ def main():
             "source": "dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(timed["max_abs_err"], worst),
-            "ms": timed["ms"], "device_ms": timed["device_ms"], "plain_ms": timed["plain_ms"],
-            "bound_ms": timed["bound_ms"],
+            "ms": timed["ms"], "device_ms": timed["device_ms"], "host_us": timed["host_us"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"], "library_ms": None,
         }
 

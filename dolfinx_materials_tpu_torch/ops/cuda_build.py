@@ -23,7 +23,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("j2_radial_return.cu", "banded_take.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# -fmad=false: no multiply and add fused into one FMA. The compiler fuses by
+# its own heuristics, which differ between instantiations of one template
+# (register pressure), so the J2 kernel's two layouts would round one
+# expression differently; unfused, each operation rounds as written, as in
+# the plain PyTorch versions' separate operations
+NVCC_FLAGS = ["-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 

@@ -23,7 +23,12 @@ Two contracts share the kernels and differ only in parameters:
   ``(1e-14 (1 + sigY))^2`` (j2_fast.py) — what the FEM path runs.
 
 Layouts: feature-major ``(6, n), (6, n), (1, n)`` as the TPU kernels took them,
-or point-major ``(n, 6), (n, 6), (n,)`` as the FEM path holds them.
+or point-major ``(n, 6), (n, 6), (n,)`` as the FEM path holds them; each is
+its own instantiation of the kernel template.
+
+:class:`J2Launch` binds a kernel to a material and a contract once (packed
+parameters, law id, entry points); the fast path holds one
+(``ops/j2_fast.py``), and the two functions above build one per call.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from . import tensors
+from .cuda_build import check, function
 
 PALLAS_CONTRACT = dict(n_iter=4, warm_start=True, reg=1e-7)
 J2_FAST_CONTRACT = dict(n_iter=12, warm_start=False, reg=1e-14)
@@ -152,86 +158,121 @@ def expand_factored_tangent(elasticity, sig, fac, feature_major=True):
 
 
 SOURCE = "j2_radial_return.cu"
-_FN = {
-    (False, torch.float32): "j2_radial_return_f32",
-    (False, torch.float64): "j2_radial_return_f64",
-    (True, torch.float32): "j2_radial_return_factored_f32",
-    (True, torch.float64): "j2_radial_return_factored_f64",
-}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def _launch(what, factored, eps, eps_p, p, elasticity, yield_stress, n_iter,
-            warm_start, reg, feature_major):
-    """Check the CUDA tensors, allocate the outputs and launch one of the two
-    kernels; raises on anything the kernel does not take or a failed launch."""
-    if not eps.is_cuda:
-        raise ValueError(f"{what}: unsupported device {eps.device}")
-    law = kernel_law(yield_stress)
-    if law is None:
-        raise TypeError(
-            f"{what}: {type(yield_stress).__name__} has no in-kernel "
-            "form; give it a kernel_law() or run on the CPU"
-        )
-    dtype = eps.dtype
-    if (factored, dtype) not in _FN:
-        raise TypeError(f"{what}: unsupported dtype {dtype}")
-    n = eps.shape[1] if feature_major else eps.shape[0]
-    shapes = ((6, n), (6, n), (1, n)) if feature_major else ((n, 6), (n, 6), (n,))
-    for t, shp in zip((eps, eps_p, p), shapes):
-        if tuple(t.shape) != shp or t.dtype != dtype or t.device != eps.device:
-            raise ValueError(
-                f"{what}: expected {shp} {dtype} on {eps.device}, got "
-                f"{tuple(t.shape)} {t.dtype} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: inputs must be contiguous")
-    width = 2 if factored else 36
-    sig = torch.empty_like(eps)
-    tangent = torch.empty((width, n) if feature_major else (n, width), dtype=dtype, device=eps.device)
-    eps_p_new = torch.empty_like(eps_p)
-    p_new = torch.empty_like(p)
-
-    law_id, hardening = law
+def pack_params(elasticity, hardening, reg):
+    """The kernels' parameter block (float64): ``mu, lmbda, h0..h3, reg``,
+    then the Mandel stiffness ``C`` row-major (36 values)."""
     h = list(hardening) + [0.0] * (4 - len(hardening))
     C = tensors.isotropic_C(elasticity.E, elasticity.nu)
-    params = np.concatenate(
+    return np.concatenate(
         [[float(elasticity.mu), float(elasticity.lmbda), *h, reg], C.ravel()]
     ).astype(np.float64)
-    from .cuda_build import check, function
 
-    vp = ctypes.c_void_p
-    fn = function(SOURCE, _FN[(factored, dtype)],
-                  [vp] * 7 + [ctypes.c_longlong, vp] + [ctypes.c_int] * 4 + [vp])
-    with torch.cuda.device(eps.device):
-        stream = torch.cuda.current_stream(eps.device).cuda_stream
+
+class J2Launch:
+    """One of the two J2 kernels bound to an elasticity, a hardening law and
+    a contract. The packed parameters, the law id and the entry point of each
+    dtype are built once, so a call on the card is the checks, the output
+    allocations and one ctypes launch on the current stream; on CPU tensors
+    it runs the plain version.
+
+    The parameters are read when the launch is built, as the JAX package's
+    kernels read them when they are made: change them through
+    ``Material.update_material_property`` (which drops the behavior's cached
+    update, and this launch with it) or with new objects, not in place.
+    """
+
+    def __init__(self, elasticity, yield_stress, *, factored, n_iter, warm_start, reg):
+        self.elasticity = elasticity
+        self.yield_stress = yield_stress
+        self.factored = bool(factored)
+        self.contract = dict(n_iter=int(n_iter), warm_start=bool(warm_start), reg=float(reg))
+        self.wrapper = j2_radial_return_factored if factored else j2_radial_return
+        self.plain = j2_radial_return_factored_reference if factored else j2_radial_return_reference
+        self.width = 2 if factored else 36
+        law = kernel_law(yield_stress)
+        # a law without a closed form: None, and the launch raises on the card
+        self.law_id = None if law is None else int(law[0])
+        self.params = None if law is None else pack_params(elasticity, law[1], reg)
+        self._fns = {}
+
+    def __call__(self, eps, eps_p, p, feature_major=True):
+        """``(sig, tangent, eps_p_new, p_new)`` in the input layout: feature-major
+        ``(6, n), (6, n), (1, n)`` or point-major ``(n, 6), (n, 6), (n,)``."""
+        if eps.device.type == "cpu":
+            return self.plain(eps, eps_p, p, self.elasticity, self.yield_stress,
+                              feature_major=feature_major, **self.contract)
+        return self._launch(eps, eps_p, p, bool(feature_major))
+
+    def _launch(self, eps, eps_p, p, feature_major):
+        """Check the CUDA tensors, allocate the outputs and launch the kernel
+        once on the current device's current stream; raises on anything the
+        kernel does not take or a failed launch."""
+        what = self.wrapper.__name__
+        if not eps.is_cuda:
+            raise ValueError(f"{what}: unsupported device {eps.device}")
+        if self.law_id is None:
+            raise TypeError(
+                f"{what}: {type(self.yield_stress).__name__} has no in-kernel "
+                "form; give it a kernel_law() or run on the CPU"
+            )
+        dtype = eps.dtype
+        fn = self._fns.get(dtype)
+        if fn is None:
+            if dtype not in _SUFFIX:
+                raise TypeError(f"{what}: unsupported dtype {dtype}")
+            name = f"{what}_{_SUFFIX[dtype]}"
+            fn = self._fns[dtype] = (function(SOURCE, name, _ARGTYPES), self.params.ctypes.data)
+        fn, params = fn
+        device = eps.device
+        n = eps.shape[1] if feature_major else eps.shape[0]
+        s6, s1 = ((6, n), (1, n)) if feature_major else ((n, 6), (n,))
+        # one expression: these checks are a fair share of a call's host time
+        if (eps.shape != s6 or eps_p.shape != s6 or p.shape != s1 or eps_p.dtype != dtype
+                or p.dtype != dtype or eps_p.device != device or p.device != device):
+            raise ValueError(
+                f"{what}: expected {s6}, {s6}, {s1} {dtype} on {device}, got "
+                + ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in (eps, eps_p, p))
+            )
+        if not (eps.is_contiguous() and eps_p.is_contiguous() and p.is_contiguous()):
+            raise ValueError(f"{what}: inputs must be contiguous")
+        dev = device.index
+        if dev != torch.cuda.current_device():
+            raise ValueError(f"{what}: inputs on {device}, not on the current CUDA device")
+        sig = eps.new_empty(s6)
+        tangent = eps.new_empty((self.width, n) if feature_major else (n, self.width))
+        eps_p_new = eps.new_empty(s6)
+        p_new = eps.new_empty(s1)
+        c = self.contract
+        # the current stream's raw handle, as in ops/banded_gather.py: a
+        # torch.cuda.current_stream() Stream object costs more host time
         rc = fn(
             eps.data_ptr(), eps_p.data_ptr(), p.data_ptr(), sig.data_ptr(),
             tangent.data_ptr(), eps_p_new.data_ptr(), p_new.data_ptr(), n,
-            params.ctypes.data, law_id, int(n_iter), int(bool(warm_start)),
-            int(bool(feature_major)), stream,
+            params, self.law_id, c["n_iter"], c["warm_start"], feature_major,
+            torch._C._cuda_getCurrentRawStream(dev),
         )
-    check(rc, SOURCE, what)
-    return sig, tangent, eps_p_new, p_new
+        check(rc, SOURCE, what)
+        self.wrapper.launches += 1
+        return sig, tangent, eps_p_new, p_new
 
 
 def j2_radial_return(eps, eps_p, p, elasticity, yield_stress, *, n_iter,
                      warm_start, reg, feature_major=True):
     """Launch the full-tangent J2 kernel on CUDA tensors; plain version on CPU
-    tensors.
+    tensors. Builds its :class:`J2Launch` anew: a caller that updates the
+    same material again holds one (``ops/j2_fast.py`` does).
 
     Returns ``(sig, Ct, eps_p_new, p_new)`` in the input layout. Raises for a
-    CUDA tensor the kernel does not take (dtype, shape, contiguity, a
+    CUDA tensor the kernel does not take (dtype, shape, contiguity, device, a
     hardening law without a closed form) or a failed launch.
     """
-    if eps.device.type == "cpu":
-        return j2_radial_return_reference(
-            eps, eps_p, p, elasticity, yield_stress, n_iter=n_iter,
-            warm_start=warm_start, reg=reg, feature_major=feature_major,
-        )
-    out = _launch("j2_radial_return", False, eps, eps_p, p, elasticity, yield_stress,
-                  n_iter, warm_start, reg, feature_major)
-    j2_radial_return.launches += 1
-    return out
+    launch = J2Launch(elasticity, yield_stress, factored=False, n_iter=n_iter,
+                      warm_start=warm_start, reg=reg)
+    return launch(eps, eps_p, p, feature_major)
 
 
 j2_radial_return.launches = 0
@@ -240,21 +281,15 @@ j2_radial_return.launches = 0
 def j2_radial_return_factored(eps, eps_p, p, elasticity, yield_stress, *, n_iter,
                               warm_start, reg, feature_major=True):
     """Launch the factored-tangent J2 kernel on CUDA tensors; plain version on
-    CPU tensors.
+    CPU tensors (a fresh :class:`J2Launch`, as :func:`j2_radial_return`).
 
     Returns ``(sig, fac, eps_p_new, p_new)`` in the input layout, ``fac`` as
     ``(2, n)`` feature-major or ``(n, 2)``. Raises, never falls back, for a
     CUDA tensor the kernel does not take or a failed launch.
     """
-    if eps.device.type == "cpu":
-        return j2_radial_return_factored_reference(
-            eps, eps_p, p, elasticity, yield_stress, n_iter=n_iter,
-            warm_start=warm_start, reg=reg, feature_major=feature_major,
-        )
-    out = _launch("j2_radial_return_factored", True, eps, eps_p, p, elasticity,
-                  yield_stress, n_iter, warm_start, reg, feature_major)
-    j2_radial_return_factored.launches += 1
-    return out
+    launch = J2Launch(elasticity, yield_stress, factored=True, n_iter=n_iter,
+                      warm_start=warm_start, reg=reg)
+    return launch(eps, eps_p, p, feature_major)
 
 
 j2_radial_return_factored.launches = 0

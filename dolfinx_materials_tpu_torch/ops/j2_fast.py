@@ -15,7 +15,7 @@ the kernel's plain version runs the same contract.
 
 from __future__ import annotations
 
-from .j2_cuda import J2_FAST_CONTRACT, j2_radial_return
+from .j2_cuda import J2_FAST_CONTRACT, J2Launch
 
 
 def make_j2_batched_update(elasticity, yield_stress, n_iter=12):
@@ -25,15 +25,20 @@ def make_j2_batched_update(elasticity, yield_stress, n_iter=12):
     The four hardening laws of models/hardening.py run inside the kernel. A
     user callable runs on the card only if it reports its closed form through
     ``kernel_law()``; without one the update raises ``TypeError`` on CUDA
-    tensors (on CPU tensors the plain version takes any callable).
+    tensors (on CPU tensors the plain version takes any callable). The
+    kernel's launch (:class:`~.j2_cuda.J2Launch`, ``batched.launch``) is built
+    here, once: the parameters are those of ``elasticity`` and
+    ``yield_stress`` now.
     """
-    contract = dict(J2_FAST_CONTRACT, n_iter=n_iter)
+    launch = J2Launch(elasticity, yield_stress, factored=False,
+                      **dict(J2_FAST_CONTRACT, n_iter=n_iter))
 
     def batched(eps, state, dt):
-        sig, Ct, eps_p, p = j2_radial_return(
+        sig, Ct, eps_p, p = launch(
             eps.contiguous(), state["eps_p"].contiguous(), state["p"].contiguous(),
-            elasticity, yield_stress, feature_major=False, **contract,
+            feature_major=False,
         )
         return sig, Ct, {"eps_p": eps_p, "p": p}
 
+    batched.launch = launch
     return batched

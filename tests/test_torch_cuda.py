@@ -7,7 +7,10 @@ neither JAX nor the JAX package, so it runs where the card is:
 
 Tolerances: the two J2 kernels (full and factored tangent) to 1e-10 of each
 field's scale in f64, and to the Pallas kernel's own test tolerances in f32
-(tests/test_pallas_j2.py); the take kernels to 1e-13 (f64) / 1e-6 (f32) of
+(tests/test_pallas_j2.py), at 1 to 4,099 points in both layouts, on arrays
+that start at their storage's first element and at its second; their two
+layouts, and their stress and state, bitwise to each other (one return map
+in one template); the take kernels to 1e-13 (f64) / 1e-6 (f32) of
 the plain version, and bitwise to each other and to
 ``compact_take_reference`` (all three add each output's entries in one order).
 """
@@ -54,19 +57,36 @@ def j2_inputs(n, seed=3):
     return eps, eps_p, 5e-3 * rng.random(n)
 
 
+def j2_args(n, feature_major, dtype, card, offset=0, seed=3):
+    """:func:`j2_inputs` in the kernel layout, on the card, each array
+    starting ``offset`` elements into its storage (1: a data pointer off the
+    16-byte grid, the kernel's element-wise route)."""
+    eps, eps_p, p = j2_inputs(n, seed)
+    arrays = [eps.T, eps_p.T, p[None, :]] if feature_major else [eps, eps_p, p]
+    out = []
+    for a in arrays:
+        a = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+        t = torch.empty(a.numel() + offset, dtype=dtype, device=card)[offset:].view(a.shape)
+        assert t.is_contiguous() and t.storage_offset() == offset
+        out.append(t.copy_(a))
+    return out
+
+
+# point counts: one point, a part of one tile, a tile and a bit, and a
+# ragged many-tile batch (the kernels take 128 points a block)
+J2_SIZES = [1, 31, 129, 4099]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("law", sorted(LAWS))
 @pytest.mark.parametrize("contract", ["pallas", "j2_fast"])
 @pytest.mark.parametrize("feature_major", [True, False])
-def test_j2_kernel_matches_plain(card, dtype, law, contract, feature_major):
+@pytest.mark.parametrize("n", J2_SIZES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_j2_kernel_matches_plain(card, dtype, law, contract, feature_major, n, offset):
     c = j2_cuda.PALLAS_CONTRACT if contract == "pallas" else j2_cuda.J2_FAST_CONTRACT
     el = models.LinearElasticIsotropic(E, 0.3)
-    eps, eps_p, p = j2_inputs(4099)  # ragged: not a multiple of the block size
-    if feature_major:
-        args = [eps.T, eps_p.T, p[None, :]]
-    else:
-        args = [eps, eps_p, p]
-    args = [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=card) for a in args]
+    args = j2_args(n, feature_major, dtype, card, offset)
     before = j2_cuda.j2_radial_return.launches
     got = j2_cuda.j2_radial_return(*args, el, LAWS[law], feature_major=feature_major, **c)
     assert j2_cuda.j2_radial_return.launches == before + 1
@@ -84,14 +104,14 @@ def test_j2_kernel_matches_plain(card, dtype, law, contract, feature_major):
 @pytest.mark.parametrize("law", sorted(LAWS))
 @pytest.mark.parametrize("contract", ["pallas", "j2_fast"])
 @pytest.mark.parametrize("feature_major", [True, False])
-def test_j2_factored_kernel_matches_plain(card, dtype, law, contract, feature_major):
+@pytest.mark.parametrize("n", J2_SIZES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_j2_factored_kernel_matches_plain(card, dtype, law, contract, feature_major, n, offset):
     """The factored-tangent kernel against its plain version, and its
     expansion against the full-tangent kernel's Ct on the same inputs."""
     c = j2_cuda.PALLAS_CONTRACT if contract == "pallas" else j2_cuda.J2_FAST_CONTRACT
     el = models.LinearElasticIsotropic(E, 0.3)
-    eps, eps_p, p = j2_inputs(4099)  # ragged: not a multiple of the block size
-    args = [eps.T, eps_p.T, p[None, :]] if feature_major else [eps, eps_p, p]
-    args = [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=card) for a in args]
+    args = j2_args(n, feature_major, dtype, card, offset)
     kw = dict(c, feature_major=feature_major)
     before = j2_cuda.j2_radial_return_factored.launches
     got = j2_cuda.j2_radial_return_factored(*args, el, LAWS[law], **kw)
@@ -99,7 +119,6 @@ def test_j2_factored_kernel_matches_plain(card, dtype, law, contract, feature_ma
     want = j2_cuda.j2_radial_return_factored_reference(*args, el, LAWS[law], **kw)
     full = j2_cuda.j2_radial_return(*args, el, LAWS[law], **kw)
     torch.cuda.synchronize()
-    n = args[0].shape[1] if feature_major else args[0].shape[0]
     assert tuple(got[1].shape) == ((2, n) if feature_major else (n, 2))
     f64 = dtype == torch.float64
     tol = dict(sig=1e-10, Ct=1e-10, st=1e-10) if f64 else dict(sig=2e-4, Ct=5e-4, st=1e-6)
@@ -109,6 +128,54 @@ def test_j2_factored_kernel_matches_plain(card, dtype, law, contract, feature_ma
         assert float((g - w).abs().max()) <= tol["st"] * (float(w.abs().max()) if f64 else 1.0)
     Ct = j2_cuda.expand_factored_tangent(el, got[0], got[1], feature_major=feature_major)
     assert float((Ct - full[1]).abs().max()) <= (1e-12 if f64 else 1e-5) * E
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("law", sorted(LAWS))
+@pytest.mark.parametrize("factored", [False, True])
+def test_j2_layouts_are_bitwise_equal(card, dtype, law, factored):
+    """The point-major instantiation (tiles staged through shared memory)
+    and the feature-major one give the same bits for the same points, on
+    aligned and misaligned arrays."""
+    el = models.LinearElasticIsotropic(E, 0.3)
+    launch = j2_cuda.J2Launch(el, LAWS[law], factored=factored, **j2_cuda.J2_FAST_CONTRACT)
+    for offset in (0, 1):
+        fm = launch(*j2_args(4099, True, dtype, card, offset), feature_major=True)
+        pm = launch(*j2_args(4099, False, dtype, card, offset), feature_major=False)
+        torch.cuda.synchronize()
+        for a, b in zip(pm, (fm[0].T, fm[1].T, fm[2].T, fm[3][0])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("law", sorted(LAWS))
+@pytest.mark.parametrize("feature_major", [True, False])
+def test_j2_full_and_factored_state_bitwise_equal(card, dtype, law, feature_major):
+    """K1 and K2 run one return map: their sig, eps_p_new and p_new are the
+    same bits."""
+    el = models.LinearElasticIsotropic(E, 0.3)
+    args = j2_args(4099, feature_major, dtype, card)
+    kw = dict(j2_cuda.J2_FAST_CONTRACT, feature_major=feature_major)
+    full = j2_cuda.j2_radial_return(*args, el, LAWS[law], **kw)
+    fac = j2_cuda.j2_radial_return_factored(*args, el, LAWS[law], **kw)
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):
+        assert torch.equal(full[i], fac[i])
+
+
+def test_j2_launch_is_one_kernel_and_its_outputs(card):
+    """A call of a held launch (the fast path's) adds one to its wrapper's
+    count and calls no PyTorch operator besides the four outputs'
+    allocations: no copy, no layout change, no host-to-device transfer."""
+    el = models.LinearElasticIsotropic(E, 0.3)
+    upd = make_j2_batched_update(el, LAWS["voce"])
+    args = j2_args(4099, False, torch.float64, card)
+    upd.launch(*args, feature_major=False)  # loads the library and types the entry point
+    before = j2_cuda.j2_radial_return.launches
+    with _Ops() as log:
+        upd.launch(*args, feature_major=False)
+    assert j2_cuda.j2_radial_return.launches == before + 1
+    assert log.ops == ["aten.new_empty.default"] * 4
 
 
 def test_j2_wrapper_raises_instead_of_falling_back(card):
