@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs seven phases; any failure exits
+(sm_90a) into ``build/kernels/`` and runs nine phases; any failure exits
 non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -38,11 +38,25 @@ non-zero before the result line is printed:
    ``GeneralIsotropicHardening`` (no fast path, 7-unknown local Newton), 3
    load steps into the plastic range, each started from the uniform stretch
    (a lifted first iterate set through ``problem.u.x``, not the load stepping
-   of ``solve_adaptive``), against the fast-path plate at the same steps.
+   of ``solve_adaptive``), against the fast-path plate at the same steps;
+8. the fused load step (``parallel.make_sharded_newton_step``) in bench.py's
+   configuration, a 64x64 P1 plate, 6 Newton x 30 CG, two-level, in f32 and
+   f64: best of 4 calls, counts and K1 launches; the f64 card run against
+   the CPU port's (u to 1e-8, equal counts);
+9. the main path's plate through the fused step
+   (``make_sharded_newton_step_general``), the three loads of phase 7: Newton
+   and CG counts, wall seconds, residuals and K1/K3/K4 launches per step,
+   u and p against phase 7's host-path plate to 1e-6, wall ms per CG
+   iteration and the device-busy share of a step; a mixed-precision step
+   (f32 warmup, f64 polish, f32 launches); one Newton update with the CG
+   loop replayed as a CUDA graph and run eagerly, bitwise equal; the plate's
+   coarse matrix built twice by the fixed-order sum, bitwise equal (and the
+   atomic ``index_add_`` twice, for comparison).
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
-JSON ``{"ok": true, "device": {...}}``. Times are CUDA-event medians on this
+JSON ``{"ok": true, "device": {...}}``; a kernel's ``launches`` there add up
+its counted paths (``launches_by_path``). Times are CUDA-event medians on this
 card (``ms`` one call, ``device_ms`` per call of a replayed CUDA graph) and
 host microseconds per un-synchronised call (``host_us``); bounds use the
 H100 SXM data-sheet rates in :data:`PEAK`.
@@ -557,6 +571,15 @@ def reset_counts():
     for fn in (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_factored,
                bg.banded_take_ell, bg.banded_take_csr):
         fn.launches = 0
+        fn.f32_launches = 0
+
+
+def read_f32_counts():
+    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+    from dolfinx_materials_tpu_torch.ops import j2_cuda
+
+    return {fn.__name__: fn.f32_launches for fn in (
+        j2_cuda.j2_radial_return, bg.banded_take_ell, bg.banded_take_csr)}
 
 
 def read_counts():
@@ -854,7 +877,7 @@ def run_generic_steps(nx, general):
     problem, qmap, bc_top, _ = build_plate(nx, DEVICE, general=general)
     reset_timings()
     torch.cuda.reset_peak_memory_stats()
-    newton, cg_its = [], []
+    newton, cg_its, step_s = [], [], []
     t0 = time.perf_counter()
     y = np.asarray(problem.u.space.node_coords)[:, 1]
     for uy in GENERIC_LOADS:
@@ -865,7 +888,10 @@ def run_generic_steps(nx, general):
         lifted = np.asarray(problem.u.x).reshape(-1, 2).copy()
         lifted[:, 1] = uy * y / LY
         problem.u.x = lifted.reshape(-1)
+        t_step = time.perf_counter()
         converged, its = problem.solve()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_step)
         if not converged:
             raise AssertionError(f"generic phase (general={general}): load {uy} did not converge")
         newton.append(its)
@@ -876,7 +902,7 @@ def run_generic_steps(nx, general):
     split = {k: timing(f"solver: {k}")[1] for k in ("constitutive update", "jacobian assembly", "linear solve")}
     split["residual and line search"] = newton_s - sum(split.values())
     return dict(u=torch.as_tensor(problem.u.x), p=qmap.field_array("p").reshape(-1).cpu(),
-                newton=newton, cg=cg_its, wall=wall, split=split, newton_s=newton_s,
+                newton=newton, cg=cg_its, wall=wall, step_s=step_s, split=split, newton_s=newton_s,
                 updates=timing("solver: constitutive update")[0],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -913,6 +939,297 @@ def phase_generic(nx):
     return gen, fast
 
 
+# ------------------------------------------------------------ phases 8 and 9
+#: [fused]: the fused step's budgets and tolerance, and the two-level coarse
+#: space of the host path's (22 coordinate boxes a dimension, 968 coarse dofs
+#: on the plate; the fused step's default of 8 gives 128)
+FUSED_NEWTON, FUSED_CG, FUSED_CG_RTOL, FUSED_BOXES = 16, 3000, 1e-6, 22
+FUSED_MIXED_CG_RTOL = 1e-4
+FUSED_BENCH_NX = 64
+FUSED_BENCH_REPS = 4
+
+
+def build_bench(nx, device, dtype):
+    """bench.py's fused-step configuration (bench.py:274-313): nx x nx P1
+    quads, J2 with Voce, left u_x, bottom u_y and right u_x = 2 sig0/E."""
+    import dolfinx_materials_tpu_torch as dm
+    from dolfinx_materials_tpu_torch import fem
+    from dolfinx_materials_tpu_torch.fem.forms import mandel_strain_2d
+    from dolfinx_materials_tpu_torch.models import LinearElasticIsotropic, VoceHardening, vonMisesIsotropicHardening
+
+    mat = dm.Material(vonMisesIsotropicHardening(LinearElasticIsotropic(E, NU), VoceHardening(SIG0, SIGU, B_VOCE)),
+                      dtype=dtype, device=device)
+    V = fem.FunctionSpace(fem.create_unit_square(nx, nx, "quad"), 1, (2,))
+    qmap = dm.QuadratureMap(V, 2, mat)
+    qmap.register_gradient("Strain", mandel_strain_2d())
+    left = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 0], 0), 0)
+    bot = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 0), 1)
+    right = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 0], 1), 0)
+    bcs = [fem.DirichletBC(left, 0.0), fem.DirichletBC(bot, 0.0), fem.DirichletBC(right, 2 * SIG0 / E)]
+    return mat, qmap, V, bcs, dm.NonlinearMaterialProblem(qmap, fem.Function(V), bcs=bcs)
+
+
+def bench_stats(device, dtype):
+    """One call of the general builder in bench.py's configuration:
+    ``(u, residual, newton, cg)``."""
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+
+    mat, qmap, V, bcs, prob = build_bench(FUSED_BENCH_NX, device, dtype)
+    step, pad = make_sharded_newton_step_general(prob, device_mesh(1, devices=[device]), n_newton=6, n_cg=30,
+                                                 pc="two_level", return_info="stats")
+    mask, vals = combine_bcs(bcs, V.num_dofs)
+    u, _, rn, _, (nn, ncg) = step(np.zeros(V.num_dofs), pad([mat.data_manager.s0.internal]), mask, vals, 0.0)
+    return u.cpu(), float(rn), nn, ncg
+
+
+def phase_fused_bench():
+    """bench.py's fused step on the card in f32 and f64: best of 4 calls
+    after a warm-up (host clock, each call ending in a synchronise), the
+    residual, Newton and CG counts and K1 launches; the f64 card run against
+    the CPU port's."""
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step
+
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        mat, qmap, V, bcs, prob = build_bench(FUSED_BENCH_NX, DEVICE, dtype)
+        step, pad = make_sharded_newton_step(qmap, prob, device_mesh(1), n_newton=6, n_cg=30, pc="two_level")
+        mask, vals = combine_bcs(bcs, V.num_dofs)
+        st0 = pad(mat.data_manager.s0.internal)
+        u0 = torch.zeros(V.num_dofs, dtype=dtype, device=DEVICE)
+        reset_counts()
+        u, _, rn = step(u0, st0, mask, vals, 0.0)
+        torch.cuda.synchronize()
+        k1 = read_counts()["j2_radial_return"]
+        best = np.inf
+        for _ in range(FUSED_BENCH_REPS):
+            t = time.perf_counter()
+            u, _, rn = step(u0, st0, mask, vals, 0.0)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t)
+        u_g, rn_g, nn, ncg = bench_stats(DEVICE, dtype)
+        same = torch.equal(u_g, u.cpu())
+        rows[dtype] = dict(u=u_g, nn=nn, ncg=ncg)
+        log(f"[fused-bench] {FUSED_BENCH_NX}x{FUSED_BENCH_NX} P1 J2 plate {str(dtype)[6:]}, 6 Newton x 30 CG, "
+            f"two-level: best of {FUSED_BENCH_REPS} {1e3 * best:.2f} ms, residual {float(rn):.4e}, newton={nn} "
+            f"cg={ncg}, K1 launches per call {k1}, wrapper and general builder bitwise={same}")
+        if not (same and k1 > 0 and np.isfinite(float(rn))):
+            raise AssertionError("fused bench step: wrapper and general builder differ, or no K1 launch")
+    t = time.perf_counter()
+    u_h, rn_h, nn_h, ncg_h = bench_stats("cpu", torch.float64)
+    card = rows[torch.float64]
+    e_u = rel_err(card["u"], u_h, u_h.abs().max())
+    ok = e_u <= 1e-8 and (card["nn"], card["ncg"]) == (nn_h, ncg_h)
+    log(f"[fused-bench] f64 card against the CPU port ({time.perf_counter() - t:.2f}s): u rel err {e_u:.2e}, "
+        f"counts card {card['nn']}/{card['ncg']} cpu {nn_h}/{ncg_h} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused bench step: card and CPU disagree")
+
+
+def lifted(u, uy, y):
+    """The uniform stretch u_y = uy y / L_y over u's u_x (as [generic])."""
+    out = u.reshape(-1, 2).clone()
+    out[:, 1] = uy * y / LY
+    return out.reshape(-1)
+
+
+def graph_snapshot(cg):
+    """The replays so far of each CUDA graph of a fused step's CG."""
+    return {k: g["replays"] for k, g in cg._graphs.items()}
+
+
+def fused_launches(cg, before, calls, f32=False):
+    """The fused path's launches since ``before`` (a ``graph_snapshot``),
+    from the wrappers' counts of their calls since then (``calls``; float32
+    calls with ``f32``): less the calls that the graphs captured since then
+    recorded (a capture records, it launches nothing), plus each graph's
+    replays since then times what one replay launches. Returns the launches
+    and, per kernel, the factors (calls, captured, replays, per replay)."""
+    i = 1 if f32 else 0
+    new = [g for k, g in cg._graphs.items() if k not in before]
+    replays = {k: g["replays"] - before.get(k, 0) for k, g in cg._graphs.items()}
+    out, factors = {}, {}
+    for name, n in calls.items():
+        captured = sum(g["recorded"][name][i] for g in new)
+        per = [(replays[k], g["recorded"][name][i]) for k, g in cg._graphs.items()]
+        out[name] = n - captured + sum(r * c for r, c in per)
+        factors[name] = dict(calls=n, captured=captured, replays=sum(r for r, _ in per),
+                             per_replay=[c for _, c in per])
+    return out, factors
+
+
+def phase_fused(nx, fast):
+    """The main path's plate through the fused step: the three loads of
+    [generic] from its lifted starts, against the host path's run of the
+    same steps (``fast``); CG wall ms per iteration and the device-busy
+    share; one mixed-precision step; one Newton update with the CG graph
+    against the eager blocks; two builds of the coarse matrix. Returns the
+    launch counts of the three steps and their factors (``fused_launches``)."""
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+    from dolfinx_materials_tpu_torch.parallel import sharding
+
+    problem, qmap, bc_top, _ = build_plate(nx, DEVICE)
+    ndofs = problem.u.space.num_dofs
+    y = torch.as_tensor(problem.u.space.node_coords[:, 1], device=DEVICE)
+    opts = dict(n_newton=FUSED_NEWTON, n_cg=FUSED_CG, cg_rtol=FUSED_CG_RTOL, pc="two_level",
+                pc_boxes=FUSED_BOXES, return_info="stats")
+    t0 = time.perf_counter()
+    step, pad = make_sharded_newton_step_general(problem, device_mesh(1), **opts)
+    log(f"[fused] {nx}x{2 * nx} P2 plate, {qmap.num_points} Gauss points, {ndofs} dofs, f64: n_newton={FUSED_NEWTON} "
+        f"n_cg={FUSED_CG} cg_rtol={FUSED_CG_RTOL:g} pc=two_level pc_boxes={FUSED_BOXES}; set-up "
+        f"{time.perf_counter() - t0:.2f}s")
+    cg_wall = [0.0]
+    solve = step.cg.solve
+
+    def timed_solve(ops, b):  # the CG solves' wall time, for ms per CG iteration
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = solve(ops, b)
+        torch.cuda.synchronize()
+        cg_wall[0] += time.perf_counter() - t
+        return out
+
+    step.cg.solve = timed_solve
+    u = torch.zeros(ndofs, dtype=torch.float64, device=DEVICE)
+    states = pad([qmap.material.data_manager.s0.internal])
+    total = dict.fromkeys(read_counts(), 0)
+    factors = {k: dict(calls=0, captured=0, replays=0) for k in total}
+    inputs, n_cg, walls = [], 0, []
+    for i, uy in enumerate(GENERIC_LOADS):
+        bc_top.set(uy)
+        mask, vals = combine_bcs(problem.bcs, ndofs)
+        u0 = lifted(u, uy, y)
+        inputs.append((u0, states, mask, vals))
+        reset_counts()
+        before = graph_snapshot(step.cg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u, states, rn, rn0, (nn, ncg) = step(u0, states, mask, vals, 0.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        counts, fac = fused_launches(step.cg, before, read_counts())
+        total = {k: total[k] + v for k, v in counts.items()}
+        for k, f in fac.items():
+            factors[k] = dict(calls=factors[k]["calls"] + f["calls"], captured=factors[k]["captured"] + f["captured"],
+                              replays=factors[k]["replays"] + f["replays"], per_replay=f["per_replay"])
+        n_cg += ncg
+        log(f"[fused] u_y={uy:g}: newton={nn} cg={ncg} wall_s={walls[-1]:.3f} (host path {fast['step_s'][i]:.3f} s, "
+            f"newton={fast['newton'][i]} cg={fast['cg'][i]}) residual {float(rn):.4e} ({float(rn) / float(rn0):.2e} "
+            f"of entering) cg blocks {step.cg.blocks} (last solve) launches {counts} = wrapper calls "
+            f"- captured + replays x per replay: {fac}")
+        if not all(counts[k] > 0 for k in ("j2_radial_return", "banded_take_ell", "banded_take_csr")):
+            raise AssertionError("fused step: K1, K3 and K4 must each launch on the fused path")
+        if not float(rn) <= 1e-10 * float(rn0):
+            raise AssertionError("fused step: a load step did not converge")
+    p = states[0]["p"].reshape(-1).cpu()
+    e_u = rel_err(u.cpu(), fast["u"], fast["u"].abs().max())
+    e_p = rel_err(p, fast["p"], fast["p"].abs().max())
+    ms_cg = 1e3 * cg_wall[0] / n_cg
+    step.cg.solve = solve
+    # device-busy share over the first step, from its inputs again
+    wall = seconds_per_call(lambda: step(*inputs[0], 0.0), reps=1)
+    busy = device_busy_ms(lambda: step(*inputs[0], 0.0))
+    share = busy / (1e3 * wall) if busy is not None else None
+    ok = e_u <= 1e-6 and e_p <= 1e-6
+    log(f"[fused] three steps {sum(walls):.3f} s against the host path's {sum(fast['step_s']):.3f} s; "
+        f"{n_cg} CG iterations at {ms_cg:.4f} ms each (wall of the CG solves); first step {1e3 * wall:.1f} ms, "
+        + (f"device busy {busy:.1f} ms, busy share {share:.3f}" if busy is not None
+           else "device time not measured (the profiler recorded no device event)")
+        + f"; against the host path u rel err {e_u:.2e} p rel err {e_p:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused step: disagrees with the host path on the same steps")
+
+    # mixed precision: one step from the first load's start; its CG is f32,
+    # which does not reach the f64 runs' 1e-12 reduction of rz
+    mixed, _ = make_sharded_newton_step_general(problem, device_mesh(1),
+                                                **dict(opts, precision="mixed", cg_rtol=FUSED_MIXED_CG_RTOL))
+    u0, st0, mask, vals = inputs[0]
+    reset_counts()
+    t = time.perf_counter()
+    u_m, _, rn, rn0, (nn, ncg) = mixed(u0, st0, mask, vals, 0.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    info = mixed.info
+    launched, _ = fused_launches(mixed.cg, {}, read_counts())
+    f32, f32_fac = fused_launches(mixed.cg, {}, read_f32_counts(), f32=True)
+    log(f"[fused] mixed precision (cg_rtol={FUSED_MIXED_CG_RTOL:g}), u_y={GENERIC_LOADS[0]:g}: {t:.3f} s, f32 warmup newton={info['warmup_newton']} "
+        f"cg={info['warmup_cg']}, f64 polish newton={info['polish_newton']} cg={info['polish_cg']}, residual "
+        f"{float(rn):.4e} ({float(rn) / float(rn0):.2e} of entering); launches {launched}, of them f32 {f32} "
+        f"(f32 factors {f32_fac})")
+    if not (f32["j2_radial_return"] > 0 and f32["banded_take_ell"] > 0 and np.isfinite(float(rn))):
+        raise AssertionError("mixed step: the f32 warmup must launch K1 and the takes in f32")
+
+    # one Newton update with the CG graph and with the eager blocks
+    # (the graph run's coarse sums are kept, to hold them against the plain
+    # version below)
+    one, sums = {}, []
+
+    def recording_sum(v, plan):
+        out = bg.fixed_sum(v, plan)
+        if not sums:
+            sums.append((v, plan, out))
+        return out
+
+    for graph in (True, False):
+        s1, _ = make_sharded_newton_step_general(problem, device_mesh(1), **dict(opts, n_newton=1))
+        s1.cg.graph = graph
+        sharding.fixed_sum = recording_sum
+        try:
+            u1, _, _, _, (nn, ncg) = s1(u0, st0, mask, vals, 0.0)
+        finally:
+            sharding.fixed_sum = bg.fixed_sum
+        one[graph] = (u1, ncg, len(s1.cg._graphs))
+    same = torch.equal(one[True][0], one[False][0]) and one[True][1] == one[False][1]
+    log(f"[fused] one Newton update, CUDA graph against eager blocks: cg {one[True][1]} / {one[False][1]}, "
+        f"graphs captured {one[True][2]} / {one[False][2]}, u bitwise equal={same} {'ok' if same else 'FAIL'}")
+    if not same or one[True][2] != 1 or one[False][2] != 0:
+        raise AssertionError("fused step: the replayed CG graph and the eager blocks differ")
+
+    # the fused step's coarse sum against the plain version on the CPU, on
+    # a CPU plan rebuilt from the kernel's lists
+    v, plan, out = sums[0]
+    ptr, idx = plan.csr_ptr.cpu().numpy(), plan.csr_idx.cpu().numpy()
+    tgt = np.empty(plan.n_src, np.int64)
+    tgt[idx] = np.repeat(np.arange(plan.n_out), np.diff(ptr))
+    ref = bg.fixed_sum_reference(v.cpu(), bg.plan_fixed_sum(tgt, plan.n_out))
+    same = torch.equal(out.cpu(), ref)
+    log(f"[fused] fused step's coarse matrix ({plan.n_src} terms into {plan.n_out} entries): banded_take_csr "
+        f"against the plain version bitwise equal={same}, max abs diff {float((out.cpu() - ref).abs().max()):.3e} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("fused coarse matrix: the kernel's fixed-order sum differs from its plain version")
+
+    # the host path's coarse matrix at the last displacement, built twice
+    problem._constitutive_update(u)
+    Kels = problem._element_matrices(u)
+    nagg, coarse_dof, _ = problem._node_aggregates()
+    ncoarse = nagg * 2
+    plan = problem._coarse_plans(ncoarse)[0]
+    w = (~torch.as_tensor(mask, device=DEVICE)).to(torch.float64)[qmap.domain.dofmap]
+    Kw = (Kels[0] * w[:, :, None] * w[:, None, :]).reshape(-1)
+    builds = [bg.fixed_sum(Kw, plan) for _ in range(2)]
+    cd = coarse_dof[qmap.domain.dofmap]
+    target = (cd[:, :, None] * ncoarse + cd[:, None, :]).reshape(-1)
+    atomic = [Kw.new_zeros(plan.n_out).index_add_(0, target, Kw) for _ in range(2)]
+    same = torch.equal(*builds)
+    # the plain version on the CPU, on a CPU plan of the same target
+    ref = bg.fixed_sum_reference(Kw.cpu(), bg.plan_fixed_sum(target.cpu().numpy(), plan.n_out))
+    plain = torch.equal(builds[0].cpu(), ref)
+    log(f"[fused] coarse matrix ({ncoarse} coarse dofs, {plan.n_src} terms into {plan.n_out} entries) built twice: "
+        f"fixed-order sum bitwise equal={same}, against the plain version bitwise equal={plain} (max abs diff "
+        f"{float((builds[0].cpu() - ref).abs().max()):.3e}); atomic index_add_ bitwise equal={torch.equal(*atomic)}, "
+        f"max difference {float((atomic[0] - atomic[1]).abs().max()):.3e}, against the fixed-order sum "
+        f"{rel_err(atomic[0], builds[0], builds[0].abs().max()):.2e} {'ok' if same and plain else 'FAIL'}")
+    if not same:
+        raise AssertionError("coarse matrix: two fixed-order builds differ")
+    if not plain:
+        raise AssertionError("coarse matrix: the kernel's fixed-order sum differs from its plain version")
+    return total, factors
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -937,7 +1254,9 @@ def main():
     # counted launch in [point] ran on
     point_counts, _, eps_point = phase_point(grads, state, behavior)
     k2 = time_j2_main(eps_point, state, behavior, factored=True)
-    phase_generic(nx_full)
+    _, fast = phase_generic(nx_full)
+    phase_fused_bench()
+    fused_counts, fused_factors = phase_fused(nx_full, fast)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -949,7 +1268,9 @@ def main():
         return {
             "name": name, "route": "cuda",
             "source": "dolfinx_materials_tpu_torch/csrc/banded_take.cu",
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": counts[name] + fused_counts[name],
+            "launches_by_path": {"main": counts[name], "fused": fused_counts[name]},
+            "fused_launches_from": fused_factors[name],
             "max_abs_err": max(takes[(f64, k)]["err"][layout] for k in keys),
             "ms": total(lambda r: r["call"][layout]),
             "device_ms": total(lambda r: r["device"][layout]),
@@ -960,11 +1281,12 @@ def main():
             "library_ms": total(lambda r: r["t_l"]),
         }
 
-    def j2_row(name, replaces, launches, timed, worst):
+    def j2_row(name, replaces, by_path, timed, worst):
         return {
             "name": name, "route": "cuda",
             "source": "dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **({"fused_launches_from": fused_factors[name]} if "fused" in by_path else {}),
             "max_abs_err": max(timed["max_abs_err"], worst),
             "ms": timed["ms"], "device_ms": timed["device_ms"], "host_us": timed["host_us"],
             "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
@@ -973,9 +1295,9 @@ def main():
 
     kernels = [
         j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
-               counts["j2_radial_return"], k1, j2_worst["full"]),
+               {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"]}, k1, j2_worst["full"]),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
-               point_counts["j2_radial_return_factored"], k2, j2_worst["factored"]),
+               {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"]),
         take_row("banded_take_csr", "csr", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
         take_row("banded_take_ell", "ell", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
     ]

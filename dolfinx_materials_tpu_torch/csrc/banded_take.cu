@@ -1,7 +1,8 @@
 // Banded take: out[n] = sum of table[e] over output n's entries e, from the
 // compact lists of a host-planned BandedTakePlan (ops/banded_gather.py). It
-// serves the element gathers, the assembly recast as a gather, and the SpMV
-// of the FEM path.
+// serves the element gathers, the assembly recast as a gather, the SpMV of
+// the FEM path and (csr, over a SumPlan) the fixed-order sums of the
+// two-level coarse matrices.
 //
 // Replaces the TPU kernels in dolfinx_materials_tpu/ops/banded_gather.py:
 // - banded_take_ell: make_banded_take_vmem (table resident in VMEM, occupied

@@ -17,6 +17,8 @@ Index routing, in order of preference:
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
@@ -83,6 +85,7 @@ class QuadratureDomain:
         self.dofmap = dev(self._dofmap_np, torch.int64)  # (ne, ndof_el)
         self.cell_volumes = self.wdetJ.sum(dim=1)
         self._build_gather_map()
+        self._node_block_plan = None
         self._stencil = None
         if (
             getattr(mesh, "grid", None) is not None
@@ -152,15 +155,7 @@ class QuadratureDomain:
         """For every global dof, the (padded) positions of its element
         contributions in the flattened element-value array: assembly becomes
         one gather + row sum (deterministic, no atomics)."""
-        dm = self._dofmap_np.ravel()
-        ndofs = self.space.num_dofs
-        order = np.argsort(dm, kind="stable")
-        sorted_dofs = dm[order]
-        counts = np.bincount(sorted_dofs, minlength=ndofs)
-        kmax = int(counts.max()) if len(dm) else 0
-        gm = np.full((ndofs, kmax), len(dm), dtype=np.int64)  # pad -> zero slot
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        gm[sorted_dofs, np.arange(len(dm)) - np.repeat(starts, counts)] = order
+        gm = bg.gather_map(self._dofmap_np, self.space.num_dofs)
         self._gather_map = torch.as_tensor(gm, device=self.device)
 
     # ------------------------------------------------------- gather/assembly
@@ -356,13 +351,31 @@ class QuadratureDomain:
 
     def matrix_node_blocks(self, K_e, nnodes):
         """Per-node (ncomp x ncomp) diagonal blocks of the assembled operator,
-        (nnodes, ncomp, ncomp): the block-Jacobi preconditioner's data."""
+        (nnodes, ncomp, ncomp): the block-Jacobi preconditioner's data,
+        summed in a fixed order (:func:`~..ops.banded_gather.fixed_sum`)."""
         nc = self.ncomp
-        Kb = K_e.reshape(self.ne, self.nloc, nc, self.nloc, nc)
-        diagb = torch.einsum("eiaib->eiab", Kb)
-        nodes = self.dofmap[:, ::nc] // nc
-        out = torch.zeros((nnodes, nc, nc), dtype=K_e.dtype, device=K_e.device)
-        return out.index_add_(0, nodes.reshape(-1), diagb.reshape(-1, nc, nc))
+        plan = self._node_block_plan
+        if plan is None or plan.n_out != nnodes * nc * nc:
+            nodes = self._dofmap_np[:, ::nc] // nc
+            target = nodes[:, :, None, None] * nc * nc + np.arange(nc * nc).reshape(1, 1, nc, nc)
+            plan = self._node_block_plan = bg.plan_fixed_sum(target, nnodes * nc * nc, device=self.device)
+        diagb = torch.einsum("eiaib->eiab", K_e.reshape(self.ne, self.nloc, nc, self.nloc, nc))
+        return bg.fixed_sum(diagb.reshape(-1), plan).reshape(nnodes, nc, nc)
+
+    def variant(self, dtype=None, stencil=True, banded=True):
+        """This domain in another dtype, or without its stencil or banded
+        route (then the next route of the module docstring's order serves
+        it): a shallow copy sharing the index plans."""
+        dom = copy.copy(self)
+        if dtype is not None and dtype != self.dtype:
+            dom.dtype = dtype
+            for name in ("dNdx", "N", "wdetJ", "x_q", "cell_volumes"):
+                setattr(dom, name, getattr(self, name).to(dtype))
+        if not stencil:
+            dom._stencil = None
+        if not banded:
+            dom._banded = None
+        return dom
 
     def to_scipy_csr(self, K_e, ndofs):
         """The assembled sparse matrix on the host, for direct solves."""

@@ -26,6 +26,13 @@ wrappers :func:`banded_take_ell` and :func:`banded_take_csr` replace the
 Pallas ``make_banded_take_vmem`` / ``make_banded_take``.
 :func:`compact_take_reference` is the plain version of the two kernels: the
 same lists, the same adds in the same order.
+
+A scatter-add over a static index (the two-level coarse matrices, the
+block-Jacobi node blocks) is planned the same way: :func:`plan_fixed_sum`
+lists each output's terms in ascending order and :func:`fixed_sum` runs the
+CSR kernel over them, so the sum is the same bits in every run, where an
+atomic ``index_add_`` on the card is not; :func:`gather_map` does it as a
+padded gather and a row sum for few outputs with many terms each.
 """
 
 from __future__ import annotations
@@ -369,6 +376,7 @@ def _launch(table, plan: BandedTakePlan, layout: str, wrapper):
             torch._C._cuda_getCurrentRawStream(dev))
     check(rc, SOURCE, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.f32_launches += table.dtype == torch.float32
     return out
 
 
@@ -383,6 +391,7 @@ def banded_take_ell(table, plan: BandedTakePlan):
 
 
 banded_take_ell.launches = 0
+banded_take_ell.f32_launches = 0  # the float32 share of ``launches``
 
 
 def banded_take_csr(table, plan: BandedTakePlan):
@@ -396,9 +405,83 @@ def banded_take_csr(table, plan: BandedTakePlan):
 
 
 banded_take_csr.launches = 0
+banded_take_csr.f32_launches = 0
 
 
 def _best_take(plan: BandedTakePlan):
     """Kernel selection: ELL unless its padding exceeds
     :data:`ELL_MAX_PADDING`, then CSR."""
     return banded_take_ell if plan.ell_padding <= ELL_MAX_PADDING else banded_take_csr
+
+
+# ------------------------------------------------------------ fixed-order sums
+def gather_map(target, n_out) -> np.ndarray:
+    """For each output i the positions p with ``target[p] == i``, ascending,
+    padded with ``len(target)``: ``cat([vals, 0])[map].sum(1)`` is the
+    scatter-add ``out[target[p]] += vals[p]`` as one gather and a row sum,
+    no atomics. For sums of few outputs with many terms each, where one
+    thread per output (:func:`fixed_sum`) would walk long lists alone."""
+    target = np.asarray(target, np.int64).reshape(-1)
+    order = np.argsort(target, kind="stable")
+    counts = np.bincount(target, minlength=int(n_out))
+    gm = np.full((int(n_out), int(counts.max()) if len(target) else 0), len(target), np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    gm[target[order], np.arange(len(target)) - np.repeat(starts, counts)] = order
+    return gm
+
+
+@dataclass
+class SumPlan:
+    """A scatter-add ``out[target[p]] += vals[p]`` with a static ``target``,
+    recast as a take: output i sums the ``vals[p]`` with ``target[p] == i``
+    in ascending p (CSR lists, the layout the CSR take kernel walks)."""
+
+    n_out: int
+    n_src: int
+    csr_ptr: torch.Tensor  # (n_out + 1,) int32
+    csr_idx: torch.Tensor  # (n_src,) int32: the p of each output, ascending
+    target: torch.Tensor | None  # (n_src,) int64 on CPU plans (the plain version's index)
+    _launch_cache: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def device(self):
+        return self.csr_idx.device
+
+
+def plan_fixed_sum(target, n_out, device="cpu") -> SumPlan:
+    """Plan the fixed-order sum of values landing on ``target`` (any shape,
+    entries in [0, n_out)). A CUDA ``device`` must be the current device."""
+    dev = _plan_device(device)
+    target = np.asarray(target, np.int64).reshape(-1)
+    if max(len(target), int(n_out)) >= 2**31 - WARP:
+        raise ValueError("fixed-order sum: the CSR lists need int32 indices and offsets")
+    order = np.argsort(target, kind="stable")
+    ptr = np.r_[0, np.cumsum(np.bincount(target, minlength=int(n_out)))]
+
+    def arr(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+
+    return SumPlan(
+        n_out=int(n_out), n_src=len(target), csr_ptr=arr(ptr), csr_idx=arr(order),
+        target=torch.as_tensor(target) if dev.type == "cpu" else None,
+    )
+
+
+def fixed_sum_reference(vals, plan: SumPlan):
+    """Plain PyTorch version of :func:`fixed_sum` on CPU values:
+    ``index_add_``, whose loop over a 1-D source adds in ascending p, the
+    kernel's order, so the two are bitwise equal (on the card
+    ``index_add_`` is atomic and its order changes between runs)."""
+    return vals.new_zeros(plan.n_out).index_add_(0, plan.target, vals)
+
+
+def fixed_sum(vals, plan: SumPlan):
+    """``out[i] = sum of vals[p] over target[p] == i``, in ascending p
+    whatever the device: the CSR take kernel (:func:`banded_take_csr`, one
+    launch, no atomics) on CUDA values, the plain version on CPU values.
+    The values and the plan must be on one device."""
+    if vals.device.type == "cpu":
+        if plan.target is None:
+            raise ValueError("fixed_sum: CPU values with a CUDA plan")
+        return fixed_sum_reference(vals, plan)
+    return _launch(vals, plan, "csr", banded_take_csr)

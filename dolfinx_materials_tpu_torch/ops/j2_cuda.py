@@ -257,6 +257,7 @@ class J2Launch:
         )
         check(rc, SOURCE, what)
         self.wrapper.launches += 1
+        self.wrapper.f32_launches += dtype == torch.float32
         return sig, tangent, eps_p_new, p_new
 
 
@@ -276,6 +277,7 @@ def j2_radial_return(eps, eps_p, p, elasticity, yield_stress, *, n_iter,
 
 
 j2_radial_return.launches = 0
+j2_radial_return.f32_launches = 0  # the float32 share of ``launches``
 
 
 def j2_radial_return_factored(eps, eps_p, p, elasticity, yield_stress, *, n_iter,
@@ -293,6 +295,7 @@ def j2_radial_return_factored(eps, eps_p, p, elasticity, yield_stress, *, n_iter
 
 
 j2_radial_return_factored.launches = 0
+j2_radial_return_factored.f32_launches = 0
 
 
 def to_feature_major(eps, eps_p, p):

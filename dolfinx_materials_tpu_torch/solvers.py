@@ -2,10 +2,13 @@
 
 ``NonlinearMaterialProblem`` is a Newton loop whose residual callback first
 runs the constitutive update of every registered QuadratureMap, then
-assembles. The linear solve is a hand-written preconditioned CG on the
-assembly-free element-matrix SpMV (``ksp_type="cg"``, with the stopping rule
-of ``jax.scipy.sparse.linalg.cg`` so iteration counts compare with the JAX
-package), or a scipy LU on the host (``ksp_type="lu"``). Dirichlet BCs are
+assembles. The linear solve is a hand-written preconditioned Krylov method
+on the assembly-free element-matrix SpMV: CG, BiCGStab or restarted GMRES
+(``ksp_type`` "cg", "bicgstab", "gmres"), each with the iteration and
+stopping rule of its ``jax.scipy.sparse.linalg`` counterpart so iteration
+counts compare with the JAX package; or a scipy LU on the host
+(``ksp_type="lu"``). ``ksp_precision="f32"`` runs the Krylov solve of an f64
+problem in float32 on the symmetrically scaled operator. Dirichlet BCs are
 imposed by masking (rows/cols to identity). ``solve()`` commits state via
 ``advance()`` on every map after convergence.
 """
@@ -19,6 +22,7 @@ import torch
 
 from .fem.bc import combine_bcs
 from .fem.space import Function
+from .ops.banded_gather import fixed_sum, gather_map, plan_fixed_sum
 from .quadrature_map import QuadratureMap
 from .utils.timers import timer
 
@@ -48,6 +52,97 @@ def cg(A, b, tol, maxiter, M):
     return x, k
 
 
+def bicgstab(A, b, tol, maxiter, M):
+    """Preconditioned BiCGStab with the iteration of
+    ``jax.scipy.sparse.linalg.bicgstab``: x0 = 0, iterate while
+    ``|r|^2 > tol^2 |b|^2``, fewer than ``maxiter`` steps were taken and no
+    breakdown (rho, alpha or omega exactly 0) stopped it; a step whose
+    intermediate residual s already passes the test ends at x + alpha phat.
+    Returns ``(x, iterations)``."""
+    x = torch.zeros_like(b)
+    r = b.clone()
+    rhat, p, q = r, r, r
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho = alpha = omega = one
+    atol2 = tol * tol * float(torch.dot(b, b))
+    k = 0
+    while k < maxiter and float(torch.dot(r, r)) > atol2:
+        rho_ = torch.dot(rhat, r)
+        beta = rho_ / rho * alpha / omega
+        p = r + beta * (p - omega * q)
+        phat = M(p)
+        q = A(phat)
+        alpha = rho_ / torch.dot(rhat, q)
+        s = r - alpha * q
+        shat = M(s)
+        t = A(shat)
+        omega = torch.dot(t, s) / torch.dot(t, t)
+        rho = rho_
+        k += 1
+        if float(torch.dot(s, s)) < atol2:
+            x, r = x + alpha * phat, s
+        else:
+            x, r = x + (alpha * phat + omega * shat), s - omega * t
+        if float(rho_) == 0.0 or float(omega) == 0.0 or float(alpha) == 0.0:
+            break
+    return x, k
+
+
+def _safe_normalize(x, thresh=None):
+    """``(x / |x|, |x|)``, or ``(0, 0)`` where ``|x|`` is at most ``thresh``
+    (the dtype's eps by default), as JAX's GMRES normalizes."""
+    norm = torch.sqrt(torch.dot(x, x))
+    thresh = torch.finfo(x.dtype).eps if thresh is None else thresh
+    use = norm > thresh
+    return torch.where(use, x / norm, torch.zeros_like(x)), torch.where(use, norm, torch.zeros_like(norm))
+
+
+def gmres(A, b, tol, maxiter, M, restart=20):
+    """Restarted, left-preconditioned GMRES with the iteration of
+    ``jax.scipy.sparse.linalg.gmres`` (``solve_method="batched"``): each
+    restart builds a ``restart``-dimensional Arnoldi basis of M A (classical
+    Gram-Schmidt, stopping at a breakdown) and takes the least-squares update
+    through the normal equations; restarts continue while the preconditioned
+    residual norm exceeds ``tol |b|`` and fewer than ``maxiter`` restarts were
+    made. Returns ``(x, Arnoldi steps)``."""
+    n = b.shape[0]
+    restart = min(restart, n)
+    x = torch.zeros_like(b)
+    atol = tol * float(torch.sqrt(torch.dot(b, b)))
+    unit, rnorm = _safe_normalize(M(b - A(x)))
+    eps = torch.finfo(b.dtype).eps
+    steps = k = 0
+    while k < maxiter and float(rnorm) > atol:
+        V = b.new_zeros((restart + 1, n))  # the basis, one vector a row
+        V[0] = unit
+        H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
+        for j in range(restart):
+            v = M(A(V[j]))
+            _, vnorm0 = _safe_normalize(v)
+            h = V @ v  # one classical Gram-Schmidt pass
+            v = v - V.T @ h
+            unit_v, vnorm1 = _safe_normalize(v, thresh=eps * vnorm0)
+            V[j + 1] = unit_v
+            h[j + 1] = vnorm1
+            H[j, :] = h
+            steps += 1
+            if float(vnorm1) == 0.0:
+                break
+        beta = b.new_zeros(restart + 1)
+        beta[0] = rnorm
+        # least squares min |H^T y - beta| through the normal equations
+        HT = H.T
+        L = torch.linalg.cholesky(HT.T @ HT)
+        y = torch.cholesky_solve((HT.T @ beta)[:, None], L)[:, 0]
+        x = x + V[:-1].T @ y
+        unit, rnorm = _safe_normalize(M(b - A(x)))
+        k += 1
+    return x, steps
+
+
+KRYLOV = {"cg": cg, "bicgstab": bicgstab, "gmres": gmres}
+
+
 class NonlinearMaterialProblem:
     """Newton solver for residuals of the form
 
@@ -59,7 +154,8 @@ class NonlinearMaterialProblem:
     0-arg callable evaluated at each assembly.
 
     Options: ``rtol``/``atol`` (dtype-aware defaults), ``max_it``,
-    ``ksp_type`` ("cg" or "lu"), ``ksp_rtol``, ``ksp_maxiter``, ``pc_type``
+    ``ksp_type`` ("cg", "bicgstab", "gmres" or "lu"), ``ksp_rtol``,
+    ``ksp_maxiter``, ``ksp_precision`` ("same" or "f32"), ``pc_type``
     ("two_level" default, "block_jacobi", "jacobi"), ``pc_coarse_size``,
     ``predictor`` (secant load-step predictor), ``line_search``,
     ``max_backtracks``, ``verbose``.
@@ -80,14 +176,15 @@ class NonlinearMaterialProblem:
         self.ksp_type = o.pop("ksp_type", "cg")
         self.ksp_rtol = o.pop("ksp_rtol", None)  # dtype-aware, resolved in solve
         self.ksp_maxiter = o.pop("ksp_maxiter", 2000)
-        if self.ksp_type not in ("cg", "lu"):
-            raise NotImplementedError(
-                f"ksp_type={self.ksp_type!r} is not ported yet (ROADMAP.md Queue 1)"
-            )
-        if o.pop("ksp_precision", "same") != "same":
-            raise NotImplementedError(
-                "ksp_precision='f32' is not ported yet (ROADMAP.md Queue 1)"
-            )
+        if self.ksp_type not in (*KRYLOV, "lu"):
+            raise ValueError(f"ksp_type must be one of {[*KRYLOV, 'lu']}, got {self.ksp_type!r}")
+        #: "f32": the Krylov solve of a float64 problem runs in float32 on the
+        #: symmetrically diagonally scaled operator (every Krylov vector O(1));
+        #: each correction is applied to the f64 iterate and the true f64
+        #: residual measured again, so Newton still reaches the f64 tolerance
+        self.ksp_precision = o.pop("ksp_precision", "same")
+        if self.ksp_precision not in ("same", "f32"):
+            raise ValueError(f"ksp_precision must be 'same' or 'f32', got {self.ksp_precision!r}")
         #: secant predictor: start Newton from the last committed solution
         #: extrapolated by the last committed increment
         self.predictor = o.pop("predictor", True)
@@ -96,6 +193,7 @@ class NonlinearMaterialProblem:
         self.pc_type = o.pop("pc_type", "two_level")
         self.pc_coarse_size = o.pop("pc_coarse_size", 1024)
         self._agg = None
+        self._coarse = None
         self.line_search = o.pop("line_search", True)
         self.max_backtracks = o.pop("max_backtracks", 12)
         self.verbose = o.pop("verbose", False)
@@ -204,13 +302,8 @@ class NonlinearMaterialProblem:
         _, agg = np.unique(keys, return_inverse=True)
         agg = agg.ravel()
         nagg = int(agg.max()) + 1
-        ndofs = nnodes * ncomp
         coarse_dof = (agg[:, None] * ncomp + np.arange(ncomp)).ravel()
-        order = np.argsort(coarse_dof, kind="stable")
-        counts = np.bincount(coarse_dof, minlength=nagg * ncomp)
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        gm = np.full((nagg * ncomp, int(counts.max())), ndofs, np.int64)
-        gm[coarse_dof[order], np.arange(ndofs) - np.repeat(starts, counts)] = order
+        gm = gather_map(coarse_dof, nagg * ncomp)
         dev = self.device
         self._agg = (
             nagg,
@@ -219,12 +312,28 @@ class NonlinearMaterialProblem:
         )
         return self._agg
 
+    def _coarse_plans(self, ncoarse):
+        """Per term, the fixed-order sum that assembles the dense coarse
+        operator from its element matrices (planned once): a repeatable
+        coarse matrix, where an atomic scatter-add's order, and with it the
+        CG counts, changed from run to run."""
+        if self._coarse is None:
+            _, coarse_dof, _ = self._node_aggregates()
+            cd_np = coarse_dof.cpu().numpy()
+            self._coarse = []
+            for t in self._terms:
+                cd = cd_np[t["qmap"].domain._dofmap_np]
+                target = cd[:, :, None] * ncoarse + cd[:, None, :]
+                self._coarse.append(plan_fixed_sum(target, ncoarse * ncoarse, device=self.device))
+        return self._coarse
+
     def _preconditioner(self, Kels, mask):
         """``M(v)`` of ``pc_type`` for the element matrices ``Kels``, with bc
         rows as identity: the Jacobi diagonal, node-block Jacobi, or the
-        additive two-level (Jacobi smoother + aggregate coarse solve)."""
+        additive two-level (Jacobi smoother + aggregate coarse solve); in
+        the dtype of ``Kels``."""
         ndofs = self.u.space.num_dofs
-        dtype, dev = self.dtype, self.device
+        dtype, dev = Kels[0].dtype, self.device
         zero = torch.zeros((), dtype=dtype, device=dev)
         diag = torch.zeros(ndofs, dtype=dtype, device=dev)
         for t, K_e in zip(self._terms, Kels):
@@ -264,13 +373,9 @@ class NonlinearMaterialProblem:
             # excluded), dense (ncoarse, ncoarse)
             notm = (~mask).to(dtype)
             Ac = torch.zeros(ncoarse * ncoarse, dtype=dtype, device=dev)
-            for t, K_e in zip(self._terms, Kels):
-                dm = t["qmap"].domain.dofmap
-                w = notm[dm]
-                Kw = K_e * w[:, :, None] * w[:, None, :]
-                cd = coarse_dof[dm]
-                idx = (cd[:, :, None] * ncoarse + cd[:, None, :]).reshape(-1)
-                Ac.index_add_(0, idx, Kw.reshape(-1))
+            for t, K_e, plan in zip(self._terms, Kels, self._coarse_plans(ncoarse)):
+                w = notm[t["qmap"].domain.dofmap]
+                Ac = Ac + fixed_sum((K_e * w[:, :, None] * w[:, None, :]).reshape(-1), plan)
             Ac = Ac.reshape(ncoarse, ncoarse)
             dAc = torch.diagonal(Ac)
             ridge = 1e-10 * dAc.abs().max() + 1e-30
@@ -292,8 +397,9 @@ class NonlinearMaterialProblem:
         return M
 
     def _cg_system(self, Kels, rhs, mask):
-        """``(A, b, M)`` for CG on J du = rhs with bc rows/cols as identity:
-        the matrix-free operator, the right-hand side and the preconditioner."""
+        """``(A, b, M)`` for a Krylov solve of J du = rhs with bc rows/cols
+        as identity: the matrix-free operator, the right-hand side and the
+        preconditioner, in the dtype of ``Kels``."""
         zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
         Kprep = [t["qmap"].domain.spmv_prepare(K_e) for t, K_e in zip(self._terms, Kels)]
 
@@ -307,8 +413,33 @@ class NonlinearMaterialProblem:
         return Av, torch.where(mask, zero, rhs), self._preconditioner(Kels, mask)
 
     def _linear_solve(self, Kels, rhs, mask):
-        """Solve J du = rhs with bc rows/cols as identity (du[bc] = 0)."""
-        tol = self.ksp_rtol
+        """Solve J du = rhs with bc rows/cols as identity (du[bc] = 0).
+
+        With ``ksp_precision="f32"`` on an f64 problem the Krylov solve runs
+        in float32 on the symmetrically scaled system
+        (S K S)(S^-1 du) = S rhs, S = diag(1/sqrt(|diag K|)), and the result
+        comes back in f64; the direct ("lu") path stays in the problem dtype.
+        Returns ``(du, Krylov iterations)``."""
+        if not (self.ksp_precision == "f32" and self.ksp_type != "lu" and rhs.dtype == torch.float64):
+            return self._linear_solve_core(Kels, rhs, mask)
+        diag = torch.zeros_like(rhs)
+        for t, K_e in zip(self._terms, Kels):
+            diag = diag + t["qmap"].domain.matrix_diagonal(K_e, rhs.shape[0])
+        diag = torch.where(mask | (diag.abs() < 1e-30), torch.ones_like(diag), diag.abs())
+        s = torch.rsqrt(diag)
+        Kels_s = []
+        for t, K_e in zip(self._terms, Kels):
+            s_e = s[t["qmap"].domain.dofmap]
+            Kels_s.append((K_e * s_e[:, :, None] * s_e[:, None, :]).to(torch.float32))
+        # the f64 default ksp_rtol (1e-12) is out of f32's reach: clamp it to
+        # just above the f32 Krylov floor; Newton recovers the f64 accuracy
+        du_s, its = self._linear_solve_core(
+            Kels_s, (rhs * s).to(torch.float32), mask, tol=max(self.ksp_rtol or 0.0, 1e-6)
+        )
+        return du_s.to(rhs.dtype) * s, its
+
+    def _linear_solve_core(self, Kels, rhs, mask, tol=None):
+        tol = self.ksp_rtol if tol is None else tol
         zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
 
         if self.ksp_type == "lu":
@@ -328,9 +459,9 @@ class NonlinearMaterialProblem:
             return self._tensor(spla.spsolve(A.tocsr(), b)), 0
 
         Av, b, M = self._cg_system(Kels, rhs, mask)
-        du, its = cg(Av, b, tol, self.ksp_maxiter, M)
-        # Krylov quality guard: a (near-)singular tangent can make CG return
-        # garbage; fall back to a preconditioned gradient step then
+        du, its = KRYLOV[self.ksp_type](Av, b, tol, self.ksp_maxiter, M)
+        # Krylov quality guard: a (near-)singular tangent can make the solve
+        # return garbage; fall back to a preconditioned gradient step then
         lin_res = torch.linalg.norm(Av(du) - b)
         bad = ~torch.isfinite(lin_res) | (lin_res > 0.9 * torch.linalg.norm(b))
         return torch.where(bad, M(b), du), its

@@ -359,3 +359,124 @@ def test_plate_steps_card_match_cpu(card):
     assert ic == ih and ph.max() > 0
     np.testing.assert_allclose(uc, uh, rtol=0, atol=1e-8 * np.abs(uh).max())
     np.testing.assert_allclose(pc, ph, rtol=0, atol=1e-8 * np.abs(ph).max())
+
+
+# ------------------------------------------------- fused step and its pieces
+def test_fixed_sum_is_one_launch_and_bitwise(card):
+    """The fixed-order sum (the CSR take kernel over a SumPlan): one launch,
+    bitwise equal to the CSR take's plain version, to the CPU's plain
+    version, and to itself on a second call."""
+    rng = np.random.default_rng(6)
+    target = rng.integers(0, 500, 50_000)
+    vals = rng.standard_normal(50_000) * 10.0 ** rng.uniform(-8, 8, 50_000)
+    plan = bg.plan_fixed_sum(target, 500, device=card)
+    v = torch.as_tensor(vals, device=card)
+    before = bg.banded_take_csr.launches
+    out = bg.fixed_sum(v, plan)
+    assert bg.banded_take_csr.launches == before + 1
+    assert torch.equal(out, bg.compact_take_reference(v, plan, "csr"))
+    assert torch.equal(out, bg.fixed_sum(v, plan))
+    cpu = bg.fixed_sum(torch.as_tensor(vals), bg.plan_fixed_sum(target, 500))
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("n_cg", [21, 500])
+def test_masked_cg_graph_matches_eager(card, n_cg):
+    """The CG block replayed as a CUDA graph against the same block run
+    eagerly: bitwise equal x and counts, on two solves through one graph."""
+    from dolfinx_materials_tpu_torch.parallel.sharding import MaskedCG
+
+    rng = np.random.default_rng(7)
+    A = rng.standard_normal((300, 300))
+    A = torch.as_tensor(A @ A.T + 300 * np.eye(300), device=card)
+    ops = {"A": A, "d": torch.diagonal(A).clone()}
+
+    def Av(o, v):
+        return o["A"] @ v
+
+    def M(o, r):
+        return r / o["d"]
+
+    graph, eager = MaskedCG(Av, M, n_cg, 1e-12, graph=True), MaskedCG(Av, M, n_cg, 1e-12, graph=False)
+    for seed in (0, 1):
+        b = torch.as_tensor(np.random.default_rng(seed).standard_normal(300), device=card)
+        (xg, kg), (xe, ke) = graph.solve(ops, b), eager.solve(ops, b)
+        assert kg == ke and torch.equal(xg, xe)
+    assert len(graph._graphs) == 1 and not eager._graphs
+
+
+def test_fused_step_card_matches_cpu(card):
+    """The fused step of the 5x5 J2 plate (tests/test_sharding.py) on the
+    card, through its CUDA graph, and on the CPU: u and p to 1e-10 of their
+    scale, equal counts."""
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+
+    assert device_mesh().device.type == "cuda"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        V = fem.FunctionSpace(fem.create_unit_square(5, 5, "quad"), 1, (2,))
+        mat = tdm.Material(models.vonMisesIsotropicHardening(
+            models.LinearElasticIsotropic(E, 0.3), LAWS["voce"]), device=dev)
+        qmap = tdm.QuadratureMap(V, 2, mat)
+        qmap.register_gradient("Strain", mandel_strain_2d())
+        left = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 0], 0), 0)
+        bottom = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 0), 1)
+        right = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 0], 1), 0)
+        bcs = [fem.DirichletBC(left, 0.0), fem.DirichletBC(bottom, 0.0), fem.DirichletBC(right, 3 * 350.0 / E)]
+        prob = tdm.NonlinearMaterialProblem(qmap, fem.Function(V), bcs=bcs)
+        step, pad = make_sharded_newton_step_general(
+            prob, device_mesh(1, devices=[dev]), n_newton=12, n_cg=200, return_info="stats")
+        mask, vals = combine_bcs(bcs, V.num_dofs)
+        u, st, rn, rn0, counts = step(np.zeros(V.num_dofs), pad([mat.data_manager.s0.internal]), mask, vals)
+        assert float(rn) < 1e-10 * float(rn0)
+        assert (dev == "cuda") == bool(step.cg._graphs)
+        out[dev] = u.cpu().numpy(), st[0]["p"].cpu().numpy(), counts
+    (uc, pc, cc), (uh, ph, ch) = out["cuda"], out["cpu"]
+    assert cc == ch and ph.max() > 0
+    np.testing.assert_allclose(uc, uh, rtol=0, atol=1e-10 * np.abs(uh).max())
+    np.testing.assert_allclose(pc, ph, rtol=0, atol=1e-10 * np.abs(ph).max())
+
+
+def test_fused_step_graph_counts_replayed_launches(card):
+    """One Newton update of the 16x32 P2 plate (banded route) with the CG
+    blocks replayed as a CUDA graph and run eagerly: u bitwise equal. The
+    take wrappers count every call, the capture's included; a replay calls
+    no wrapper, so the graph run's launches are its wrapper counts less the
+    capture's calls plus replays x recorded, which is the eager run's
+    launches plus one block's, the warm-up the capture runs on copies."""
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+
+    names = ("banded_take_ell", "banded_take_csr")
+    out = {}
+    for graph in (True, False):
+        V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
+        mat = tdm.Material(models.vonMisesIsotropicHardening(
+            models.LinearElasticIsotropic(E, 0.3), LAWS["voce"]), device=card)
+        qmap = tdm.QuadratureMap(V, 4, mat)
+        qmap.register_gradient("Strain", mandel_strain_2d())
+        bottom = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 0.0))
+        top = fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 1], 2.0), 1)
+        bcs = [fem.DirichletBC(bottom, 0.0), fem.DirichletBC(top, 0.0075)]
+        prob = tdm.NonlinearMaterialProblem(qmap, fem.Function(V), bcs=bcs)
+        step, pad = make_sharded_newton_step_general(prob, device_mesh(1), n_newton=1, n_cg=400,
+                                                     return_info="stats")
+        step.cg.graph = graph
+        mask, vals = combine_bcs(bcs, V.num_dofs)
+        u0 = np.stack([np.zeros(V.num_nodes), 0.0075 * V.node_coords[:, 1] / 2.0], axis=1).reshape(-1)
+        counts = [bg.banded_take_ell.launches, bg.banded_take_csr.launches]
+        u, _, _, _, (_, ncg) = step(u0, pad([mat.data_manager.s0.internal]), mask, vals)
+        torch.cuda.synchronize()
+        out[graph] = u, ncg, [bg.banded_take_ell.launches - counts[0], bg.banded_take_csr.launches - counts[1]]
+        if graph:
+            (g,) = step.cg._graphs.values()
+            block = [g["recorded"][n][0] for n in names]
+            replays = g["replays"]
+        else:
+            blocks = step.cg.blocks
+    assert out[True][1] == out[False][1] > 16
+    assert torch.equal(out[True][0], out[False][0])
+    assert min(block) > 0 and replays == blocks
+    launched = [calls - b + replays * b for calls, b in zip(out[True][2], block)]
+    assert launched == [e + b for e, b in zip(out[False][2], block)]
