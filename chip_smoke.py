@@ -6,8 +6,8 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs nine phases; any failure exits
-non-zero before the result line is printed:
+(sm_90a) into ``build/kernels/`` and runs thirteen phases; any failure
+exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
    instantiation;
@@ -20,9 +20,10 @@ non-zero before the result line is printed:
    their storage (the tail and alignment routes);
 3. banded take: the ELL and CSR gather kernels against the plain version,
    and bitwise against each other and their own plain version, on the
-   128x256 P2 plate's cell, fm and asm plans and a 64x128 triangle plate's
-   assembly plan with overflow patches, in f32 and f64; each timed per call,
-   on the device (a CUDA graph of back-to-back takes) and on the host;
+   128x256 P2 plate's cell, fm and asm plans, a 64x128 triangle plate's
+   assembly plan with overflow patches and the N = 10 P2-tet Ogden block's
+   three plans, in f32 and f64; each timed per call, on the device (a CUDA
+   graph of back-to-back takes) and on the host;
 4. the J2 plate slice on a 16x32 mesh, 3 load steps, on the card and on the
    CPU: displacement and plastic strain agree to 1e-8, Newton counts equal;
 5. the main path at full width: the 128x256 P2 plate (294,912 Gauss points,
@@ -48,10 +49,23 @@ non-zero before the result line is printed:
    and CG counts, wall seconds, residuals and K1/K3/K4 launches per step,
    u and p against phase 7's host-path plate to 1e-6, wall ms per CG
    iteration and the device-busy share of a step; a mixed-precision step
-   (f32 warmup, f64 polish, f32 launches); one Newton update with the CG
-   loop replayed as a CUDA graph and run eagerly, bitwise equal; the plate's
+   (Mandel strains: f64 tangents and CG, the warmup's u in f32); one Newton
+   update with the CG loop replayed as a CUDA graph and run eagerly, bitwise
+   equal; the plate's
    coarse matrix built twice by the fixed-order sum, bitwise equal (and the
-   atomic ``index_add_`` twice, for comparison).
+   atomic ``index_add_`` twice, for comparison);
+10. the 3D Ogden benchmark (``demos.ogden_block``): the unit cube on P2
+    tets, 10 mixed-precision steps to 20 % compression at N = 10 (6,000
+    tets) and the first 3 at N = 20 (48,000 tets, from a lifted first
+    iterate), each timed warm after a first run of its first step:
+    per-step relative residual (<= 1e-4), Newton and CG counts, warm seconds,
+    the CG solves' share, K3/K4 launches;
+11. the same block on P1 hexes at N = 19 in f32 (the 3D stencil);
+12. the composite (``demos.composite_hyperelasticity``): Ogden matrix and
+    SVK inclusions at 1e12, cfg (2, 1, 3), 10 mixed steps;
+13. the tet block at N = 4, the composite at cfg (1, 1, 2) and the hex
+    block at N = 3 in f32, 3 steps each, on the card and on the CPU: u to
+    1e-6 on the mixed protocols, to 1e-5 in f32.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -444,7 +458,20 @@ def overflow_plan(nx):
                                      device=DEVICE)
 
 
-def phase_take(nx):
+def tet_plans(N):
+    """The cell, fm and asm plans of the N^3 P2-tet Ogden block ([ogden-tet]),
+    keyed ``tet_cell``, ``tet_fm``, ``tet_asm``."""
+    from dolfinx_materials_tpu_torch import fem
+    from dolfinx_materials_tpu_torch.fem.assembly import QuadratureDomain
+
+    V = fem.FunctionSpace(fem.create_unit_cube(N, N, N, "tetrahedron"), degree=2, shape=(3,))
+    dom = QuadratureDomain(V, 4, device=DEVICE)
+    if dom._banded is None or dom._banded.get("fm") is None:
+        raise AssertionError("the P2-tet block did not get its cell, fm and asm plans")
+    return {f"tet_{k}": p for k, p in dom._banded.items()}
+
+
+def phase_take(nx, tet_n):
     from dolfinx_materials_tpu_torch import fem
     from dolfinx_materials_tpu_torch.fem.assembly import QuadratureDomain
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
@@ -455,10 +482,10 @@ def phase_take(nx):
     dom = QuadratureDomain(V, 4, device=DEVICE)
     if dom._banded is None or dom._banded.get("fm") is None:
         raise AssertionError("the plate did not get its cell, fm and asm plans")
-    plans = dict(dom._banded, asm_overflow=overflow_plan(nx // 2))
-    log(f"[take] {nx}x{2 * nx} P2 plate (and the {nx // 2}x{nx} triangle plate's asm_overflow): "
-        f"plans in {time.perf_counter() - t0:.2f}s; call_ms: CUDA events around one call; device_ms: "
-        f"{TAKE_GRAPH} calls in one CUDA graph; host_us: {TAKE_HOST} un-synchronised calls")
+    plans = dict(dom._banded, asm_overflow=overflow_plan(nx // 2), **tet_plans(tet_n))
+    log(f"[take] {nx}x{2 * nx} P2 plate (and the {nx // 2}x{nx} triangle plate's asm_overflow, the N={tet_n} "
+        f"P2-tet Ogden block's tet_*): plans in {time.perf_counter() - t0:.2f}s; call_ms: CUDA events around one "
+        f"call; device_ms: {TAKE_GRAPH} calls in one CUDA graph; host_us: {TAKE_HOST} un-synchronised calls")
     tol = {torch.float32: 1e-6, torch.float64: 1e-13}
     kernels = {"ell": bg.banded_take_ell, "csr": bg.banded_take_csr}
     g = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1142,8 +1169,10 @@ def phase_fused(nx, fast):
     if not ok:
         raise AssertionError("fused step: disagrees with the host path on the same steps")
 
-    # mixed precision: one step from the first load's start; its CG is f32,
-    # which does not reach the f64 runs' 1e-12 reduction of rz
+    # mixed precision: one step from the first load's start. The plate's
+    # Mandel strains give f64 tangents and CG (as the JAX package's promote
+    # to), with u and the residual of the warmup in f32; cg_rtol stays
+    # that of PR 5's f32 CG
     mixed, _ = make_sharded_newton_step_general(problem, device_mesh(1),
                                                 **dict(opts, precision="mixed", cg_rtol=FUSED_MIXED_CG_RTOL))
     u0, st0, mask, vals = inputs[0]
@@ -1155,12 +1184,14 @@ def phase_fused(nx, fast):
     info = mixed.info
     launched, _ = fused_launches(mixed.cg, {}, read_counts())
     f32, f32_fac = fused_launches(mixed.cg, {}, read_f32_counts(), f32=True)
-    log(f"[fused] mixed precision (cg_rtol={FUSED_MIXED_CG_RTOL:g}), u_y={GENERIC_LOADS[0]:g}: {t:.3f} s, f32 warmup newton={info['warmup_newton']} "
-        f"cg={info['warmup_cg']}, f64 polish newton={info['polish_newton']} cg={info['polish_cg']}, residual "
-        f"{float(rn):.4e} ({float(rn) / float(rn0):.2e} of entering); launches {launched}, of them f32 {f32} "
-        f"(f32 factors {f32_fac})")
-    if not (f32["j2_radial_return"] > 0 and f32["banded_take_ell"] > 0 and np.isfinite(float(rn))):
-        raise AssertionError("mixed step: the f32 warmup must launch K1 and the takes in f32")
+    log(f"[fused] mixed precision (cg_rtol={FUSED_MIXED_CG_RTOL:g}), u_y={GENERIC_LOADS[0]:g}: {t:.3f} s, warmup "
+        f"newton={info['warmup_newton']} cg={info['warmup_cg']}, f64 polish newton={info['polish_newton']} "
+        f"cg={info['polish_cg']}, CG operands {info['cg_dtype']}, residual {float(rn):.4e} "
+        f"({float(rn) / float(rn0):.2e} of entering); launches {launched}, of them f32 {f32} (f32 factors {f32_fac})")
+    if not (info["cg_dtype"] == torch.float64 and launched["j2_radial_return"] > 0
+            and launched["banded_take_ell"] > 0 and np.isfinite(float(rn))):
+        raise AssertionError("mixed step on the Mandel-strain plate: tangents and CG must be f64, and K1 and the "
+                             "takes must launch")
 
     # one Newton update with the CG graph and with the eager blocks
     # (the graph run's coarse sums are kept, to hold them against the plain
@@ -1230,6 +1261,197 @@ def phase_fused(nx, fast):
     return total, factors
 
 
+# ---------------------------------------------------------- phases 10 to 13
+#: [ogden-tet]: the fine P2-tet block (6,000 tets, 27,783 dofs, 84,000 Gauss
+#: points) for 10 steps, then N = 20 (48,000 tets, 206,763 dofs, 672,000
+#: points) for its first 3; [ogden-hex]: the P1-hex block at N = 19;
+#: [composite]: the coarse composite; [ogden-cpu]: card against CPU (the
+#: tet block at N = 4, the smallest N whose plans the banded route builds,
+#: the composite at cfg (1, 1, 2) and the hex block at N = 3, 3 steps each)
+OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 3
+OGDEN_HEX_N = 19
+COMPOSITE_CFG = (2, 1, 3)
+OGDEN_CPU_N, OGDEN_CPU_CFG, OGDEN_CPU_HEX_N, OGDEN_CPU_STEPS = 4, (1, 1, 2), 3, 3
+#: per-step relative residual bars: the mixed protocols' rtol (1e-4), and
+#: for the f32 hex protocol about 3x its f32 floor (rtol 2e-5 is below the
+#: floor: steps end on the Newton budget, at up to 1.3e-3 of the entering
+#: residual on the CPU at N = 3 over 10 steps and up to 9.0e-4 on an H100
+#: at N = 19)
+MIXED_BAR, HEX_BAR = 1e-4, 3e-3
+#: card against CPU: u to 1e-6 of its largest entry on the mixed protocols
+#: (the tolerance of tests/test_torch_ogden_block.py against the JAX
+#: package), and to 1e-5 on the f32 hex protocol (5x the spread of the two
+#: packages' f32 runs on the CPU, 2.1e-6 at N = 3 after 3 steps,
+#: tests/test_torch_ogden_hex.py)
+MIXED_CPU_TOL, HEX_CPU_TOL = 1e-6, 1e-5
+TAKES = ("banded_take_ell", "banded_take_csr")
+
+
+def run_ogden(tag, proto, run_steps, bar=MIXED_BAR):
+    """A protocol's first load step (the first build: kernels, CUDA-graph
+    captures), then all its steps again from u = 0 (``run_steps(proto,
+    n)``, n None for all), the warm run; the counts are set to 0 before each
+    run and the warm run's launches derived as [fused] derives them. Prints
+    per-step relative |R|, Newton and CG counts, the wall seconds of each
+    run and the launches, and holds every step to ``bar``, the CG to f32
+    and, on a tet mesh, K3 and K4 to f32 launches. Returns ``(u, stats,
+    seconds, launches)``."""
+    seconds, cg = [], proto["step"].cg
+    solve, cg_wall = cg.solve, [0.0]
+
+    def timed_solve(ops, b):  # the CG solves' wall time, as [fused] takes it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = solve(ops, b)
+        torch.cuda.synchronize()
+        cg_wall[0] += time.perf_counter() - t
+        return out
+
+    for n in (1, None):
+        reset_counts()
+        before = graph_snapshot(cg)
+        cg_wall[0] = 0.0
+        cg.solve = solve if n else timed_solve
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u, stats = run_steps(proto, n)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        launches, factors = fused_launches(cg, before, read_counts())
+        f32, _ = fused_launches(cg, before, read_f32_counts(), f32=True)
+    cg.solve = solve
+    n_cg = sum(st["cg"] for st in stats)
+    rel = [st["res"] / max(st["res0"], 1e-300) for st in stats]
+    for k, st in enumerate(stats):
+        log(f"[{tag}]   step {k + 1}: rel |R| {rel[k]:.3e} (|R| {st['res']:.4e}) newton={st['newton']} "
+            f"cg={st['cg']}")
+    # deformation gradients: f32 tangents and CG, so the mixed CG's takes
+    # run in f32 (the f32 hex protocol is f32 throughout)
+    cg_dtype = proto["step"].info["cg_dtype"]
+    ok = all(np.isfinite(r) and r <= bar for r in rel) and bool(torch.isfinite(u).all()) and (
+        cg_dtype == torch.float32) and (not proto["tet"] or all(launches[k] > 0 and f32[k] > 0 for k in TAKES))
+    log(f"[{tag}] {len(stats)} steps: wall_s {seconds[1]:.3f} warm (the first step alone, first build: "
+        f"{seconds[0]:.3f}); "
+        f"newton={sum(st['newton'] for st in stats)} cg={n_cg}; CG solves {cg_wall[0]:.3f}s of the warm run "
+        f"({100 * cg_wall[0] / seconds[-1]:.1f}%, {1e3 * cg_wall[0] / max(n_cg, 1):.4f} ms per CG iteration, a "
+        f"synchronise around each solve); CG operands {cg_dtype}; launches of the last run (f32 {f32}) "
+        f"{launches} = wrapper calls - captured + replays x per replay: {factors}; max rel |R| {max(rel):.3e} "
+        f"(bar {bar:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: a step missed its residual bar, u is not finite, the CG was not f32, or "
+                             "K3/K4 did not launch (in f32)")
+    return u, stats, seconds, launches
+
+
+def ogden_tet(N, n_steps, device=DEVICE, lift_first=False):
+    """The P2-tet block's mixed protocol (demos.ogden_block, its defaults)."""
+    from dolfinx_materials_tpu_torch.demos import ogden_block
+
+    proto = ogden_block.make_protocol(N, "tetrahedron", 2, "mixed", device=device)
+    proto["tet"] = True
+    return proto, lambda p, n=None: ogden_block.run_steps(p, n or n_steps, lift_first=lift_first)
+
+
+def composite(cfg, n_steps=10, device=DEVICE):
+    """The composite's protocol (demos.composite_hyperelasticity, its
+    defaults), ``n_steps`` of its 2 % increments."""
+    from dolfinx_materials_tpu_torch.demos import composite_hyperelasticity
+
+    proto = composite_hyperelasticity.make_protocol(cfg, n_steps=n_steps, exx_max=0.02 * n_steps, device=device)
+    proto["tet"] = True
+    return proto, composite_hyperelasticity.run_steps
+
+
+def describe(proto):
+    doms = [q.domain for q in proto.get("qmaps") or [proto["qmap"]]]
+    return (f"{sum(d.ne for d in doms)} cells, {proto['V'].num_dofs} dofs, {sum(d.num_points for d in doms)} "
+            f"Gauss points, banded plans {[sorted(k for k, v in (d._banded or {}).items() if v is not None) for d in doms]}")
+
+
+def phase_ogden_tet():
+    """[ogden-tet]: the reference's timed 3D Ogden protocol on its own P2
+    tets through the mixed fused step, N = 10 for 10 steps, then N = 20 for
+    3. Returns the launches of the two warm runs, summed."""
+    total = dict.fromkeys(read_counts(), 0)
+    for N, n_steps in ((OGDEN_TET_N, 10), (OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS)):
+        t = time.perf_counter()
+        # from N = 17 on the protocol's first iterate inverts the top layer
+        # of cells (demos.ogden_block.run_steps): N = 20 starts lifted
+        lift = N >= 17
+        proto, run = ogden_tet(N, n_steps, lift_first=lift)
+        log(f"[ogden-tet] N={N} P2 tets, mixed, P1 coarse space, rtol 1e-4, cg_rtol 1e-3"
+            f"{', first step from the uniform compression' if lift else ''}: {describe(proto)}; "
+            f"set-up {time.perf_counter() - t:.2f}s")
+        torch.cuda.reset_peak_memory_stats()
+        _, _, _, launches = run_ogden("ogden-tet", proto, run)
+        log(f"[ogden-tet] N={N}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        total = {k: total[k] + launches[k] for k in total}
+        del proto, run
+    return total
+
+
+def phase_ogden_hex():
+    """[ogden-hex]: the P1-hex block at N = 19, f32, make_sharded_newton_step
+    on the 3D stencil (no take launches)."""
+    t = time.perf_counter()
+    proto, run = ogden_hex(OGDEN_HEX_N)
+    stencil = proto["qmap"].domain._stencil
+    log(f"[ogden-hex] N={OGDEN_HEX_N} P1 hexes, f32, rtol 2e-5, 20 Newton x 150 CG: {describe(proto)}, stencil "
+        f"{stencil}; set-up {time.perf_counter() - t:.2f}s")
+    if stencil is None:
+        raise AssertionError("ogden-hex: the hex block did not take the 3D stencil")
+    return run_ogden("ogden-hex", proto, run, bar=HEX_BAR)[3]
+
+
+def phase_composite():
+    """[composite]: Ogden matrix and SVK inclusions at 1e12, coarse cfg, 10
+    steps, mixed, rigid-body coarse modes per material."""
+    t = time.perf_counter()
+    proto, run = composite(COMPOSITE_CFG)
+    log(f"[composite] cfg {COMPOSITE_CFG}, P2 tets, Ogden + SVK (E_pen 1e12), mixed, rbm coarse modes split by "
+        f"material: {describe(proto)}; set-up {time.perf_counter() - t:.2f}s")
+    return run_ogden("composite", proto, run)[3]
+
+
+def ogden_hex(N, device=DEVICE):
+    """The P1-hex block's f32 protocol (demos.ogden_block, its defaults)."""
+    from dolfinx_materials_tpu_torch.demos import ogden_block
+
+    proto = ogden_block.make_protocol(N, "hexahedron", 1, "f32", device=device)
+    proto["tet"] = False
+    return proto, ogden_block.run_steps
+
+
+def phase_ogden_cpu():
+    """[ogden-cpu]: the tet block, the composite and the hex block, 3 steps
+    each, on the card and on the CPU: u to ``MIXED_CPU_TOL`` on the mixed
+    protocols and to ``HEX_CPU_TOL`` on the f32 one, every step to its bar
+    (the f32 CGs round differently on the two, so counts are printed, not
+    compared)."""
+    for name, make, tol, bar in (
+            ("tet", lambda dev: ogden_tet(OGDEN_CPU_N, OGDEN_CPU_STEPS, dev), MIXED_CPU_TOL, MIXED_BAR),
+            ("composite", lambda dev: composite(OGDEN_CPU_CFG, OGDEN_CPU_STEPS, dev), MIXED_CPU_TOL, MIXED_BAR),
+            ("hex f32", lambda dev: ogden_hex(OGDEN_CPU_HEX_N, dev), HEX_CPU_TOL, HEX_BAR)):
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            proto, run = make(dev)
+            t = time.perf_counter()
+            u, stats = run(proto, OGDEN_CPU_STEPS)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            out[dev] = (u.cpu(), stats, time.perf_counter() - t, describe(proto))
+        (u_c, st_c, t_c, d), (u_h, st_h, t_h, _) = out[DEVICE], out["cpu"]
+        err = rel_err(u_c, u_h, u_h.abs().max())
+        rel = [s["res"] / s["res0"] for s in st_c + st_h]
+        ok = err <= tol and max(rel) <= bar and u_c.dtype == u_h.dtype
+        log(f"[ogden-cpu] {name} ({d}), {OGDEN_CPU_STEPS} steps, u {u_c.dtype}: card {t_c:.2f}s newton="
+            f"{[s['newton'] for s in st_c]} cg={[s['cg'] for s in st_c]} | cpu {t_h:.2f}s newton="
+            f"{[s['newton'] for s in st_h]} cg={[s['cg'] for s in st_h]} | u rel err {err:.2e} (tol "
+            f"{tol:g}), max rel |R| {max(rel):.2e} (bar {bar:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ogden-cpu: {name} card and CPU disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1242,7 +1464,7 @@ def main():
     smi = phase_build()
     f64 = torch.float64
     j2_worst = phase_j2()
-    takes = phase_take(nx_full)
+    takes = phase_take(nx_full, OGDEN_TET_N)
     phase_slice_cpu_vs_card()
     counts, grads, state, behavior, problem = phase_main(nx_full)
     phase_cg(problem)
@@ -1257,28 +1479,36 @@ def main():
     _, fast = phase_generic(nx_full)
     phase_fused_bench()
     fused_counts, fused_factors = phase_fused(nx_full, fast)
+    ogden = {"ogden_tet": phase_ogden_tet(), "ogden_hex": phase_ogden_hex(), "composite": phase_composite()}
+    phase_ogden_cpu()
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
+    tet_keys = ("tet_cell", "tet_fm", "tet_asm")
 
     def take_row(name, layout, replaces):
-        def total(f):  # one take of each of the slice's three plans, f64
-            return sum(f(takes[(f64, k)]) for k in keys)
+        def total(f, ks=keys):  # one take of each of a slice's three plans, f64
+            return sum(f(takes[(f64, k)]) for k in ks)
 
+        def times(ks):
+            return {"ms": total(lambda r: r["call"][layout], ks), "device_ms": total(lambda r: r["device"][layout], ks),
+                    "host_us": total(lambda r: r["host"][layout], ks), "plain_ms": total(lambda r: r["t_p"], ks),
+                    "bound_ms": total(lambda r: r["bound"], ks), "library_ms": total(lambda r: r["t_l"], ks)}
+
+        by_path = {"main": counts[name], "fused": fused_counts[name],
+                   **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")}}
+        plate = times(keys)
         return {
             "name": name, "route": "cuda",
             "source": "dolfinx_materials_tpu_torch/csrc/banded_take.cu",
-            "replaces": replaces, "launches": counts[name] + fused_counts[name],
-            "launches_by_path": {"main": counts[name], "fused": fused_counts[name]},
+            "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             "fused_launches_from": fused_factors[name],
-            "max_abs_err": max(takes[(f64, k)]["err"][layout] for k in keys),
-            "ms": total(lambda r: r["call"][layout]),
-            "device_ms": total(lambda r: r["device"][layout]),
-            "host_us": total(lambda r: r["host"][layout]),
-            "plain_ms": total(lambda r: r["t_p"]),
-            "bound_ms": total(lambda r: r["bound"]),
-            "bound_by": "bytes",
-            "library_ms": total(lambda r: r["t_l"]),
+            "max_abs_err": max(takes[(f64, k)]["err"][layout] for k in keys + tet_keys),
+            "ms": plate["ms"], "device_ms": plate["device_ms"], "host_us": plate["host_us"],
+            "plain_ms": plate["plain_ms"], "bound_ms": plate["bound_ms"], "bound_by": "bytes",
+            "library_ms": plate["library_ms"],
+            # the same three takes on the fine P2-tet block's plans
+            "p2_tet": times(tet_keys),
         }
 
     def j2_row(name, replaces, by_path, timed, worst):

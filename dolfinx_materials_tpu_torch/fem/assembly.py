@@ -101,25 +101,18 @@ class QuadratureDomain:
     # ---------------------------------------------------------------- plans
     def _build_banded(self):
         """Banded-take plans (cell-major gather, feature-major gather,
-        slot-wise assembly); kept only if the numbering is banded enough that
-        windows stay small and patches rare."""
+        slot-wise assembly). The kernels read each plan's compact per-output
+        entry lists, with the window layout and the patches folded in at plan
+        time, so a plan is kept whenever it could be built (at most ``max_R``
+        window rows); the TPU layout's window and patch budgets do not apply."""
         dm = self._dofmap_np
         ndofs = self.space.num_dofs
         dev = self.device
 
-        def plan_ok(p):
-            return (
-                p is not None
-                and p.frac_patched < 0.02
-                and p.R <= 256
-                and float(p.nq.float().mean()) * p.sub <= 64
-            )
-
         def best_plan(fn, chunks=(2048, 1024, 512, 256)):
-            # smaller chunks shrink per-chunk windows on small meshes
             for ch in chunks:
                 p = fn(chunk=ch)
-                if plan_ok(p):
+                if p is not None:
                     return p
             return None
 

@@ -1,8 +1,10 @@
-"""Meshes: a static-shape mesh container and structured rectangle generators.
+"""Meshes: a static-shape mesh container and structured rectangle and box
+generators.
 
-Host-side numpy (meshes are built once); the vertex and cell numbering of
-:func:`create_rectangle` is the lattice order node ``i*(ny+1)+j``, cell
-``i*ny+j``, identical to the JAX package's.
+Host-side numpy (meshes are built once); the vertex and cell numbering is the
+lattice order, identical to the JAX package's: node ``i*(ny+1)+j`` and cell
+``i*ny+j`` in 2D, node ``(i*(ny+1)+j)*(nz+1)+k`` and cell ``(i*ny+j)*nz+k``
+in 3D.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ class Mesh:
     points: np.ndarray  # (npoints, dim) float64 vertex coordinates
     cells: np.ndarray  # (ncells, nverts) int32 vertex indices
     cell_type: str
-    #: structured-grid metadata (nx, ny) of the generators; enables the
-    #: stencil (shifted-slice) gathers of QuadratureDomain on P1 spaces
+    #: structured-grid metadata (nx, ny[, nz]) of the generators; enables
+    #: the stencil (shifted-slice) gathers of QuadratureDomain on P1 spaces
     grid: tuple | None = None
 
     def __post_init__(self):
@@ -50,6 +52,9 @@ class Mesh:
         """Unique faces of 3D cells as sorted vertex tuples + per-cell face
         indices in ``element.FACETS`` order, first-seen numbering."""
         return _unique_entities(self.cells, FACETS[self.cell_type])
+
+    def cell_centers(self):
+        return self.points[self.cells].mean(axis=1)
 
 
 def _unique_entities(cells, local):
@@ -86,3 +91,35 @@ def create_rectangle(p0, p1, n, cell_type="quad"):
 
 def create_unit_square(nx, ny, cell_type="quad"):
     return create_rectangle((0.0, 0.0), (1.0, 1.0), (nx, ny), cell_type)
+
+
+def create_box(p0, p1, n, cell_type="hexahedron"):
+    """Structured box mesh of ``n=(nx, ny, nz)`` cells ('hexahedron' or
+    'tetrahedron': the Kuhn split, 6 tets a hex, conforming across faces)."""
+    nx, ny, nz = n
+    axes = [np.linspace(p0[d], p1[d], n[d] + 1) for d in range(3)]
+    X, Y, Z = np.meshgrid(*axes, indexing="ij")
+    points = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    I, J, K = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"))
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    hexes = np.stack([
+        vid(I, J, K), vid(I + 1, J, K), vid(I + 1, J + 1, K), vid(I, J + 1, K),
+        vid(I, J, K + 1), vid(I + 1, J, K + 1), vid(I + 1, J + 1, K + 1), vid(I, J + 1, K + 1),
+    ], axis=1).astype(np.int32)
+    if cell_type == "hexahedron":
+        return Mesh(points, hexes, "hexahedron", grid=(nx, ny, nz))
+    if cell_type == "tetrahedron":
+        h = hexes
+        tets = np.concatenate([
+            h[:, [0, 1, 2, 6]], h[:, [0, 2, 3, 6]], h[:, [0, 3, 7, 6]],
+            h[:, [0, 7, 4, 6]], h[:, [0, 4, 5, 6]], h[:, [0, 5, 1, 6]],
+        ])
+        return Mesh(points, tets, "tetrahedron")
+    raise ValueError(cell_type)
+
+
+def create_unit_cube(nx, ny, nz, cell_type="hexahedron"):
+    return create_box((0, 0, 0), (1, 1, 1), (nx, ny, nz), cell_type)

@@ -1,6 +1,6 @@
 """Constitutive model library: small-strain elasticity, plasticity,
 viscoplasticity and viscoelasticity, with the hardening laws and the
-plane-stress wrapper."""
+plane-stress wrapper, and finite-strain hyperelasticity."""
 
 from .base import Behavior, FiniteStrainBehavior, SmallStrainBehavior  # noqa: F401
 from .conic import (  # noqa: F401
@@ -17,6 +17,7 @@ from .hardening import (  # noqa: F401
     SwiftHardening,
     VoceHardening,
 )
+from .hyperelasticity import HyperelasticBehavior, NeoHooke, Ogden, SaintVenantKirchhoff  # noqa: F401
 from .hypotheses import PlaneStress  # noqa: F401
 from .nonlinear_elasticity import RambergOsgoodNonLinearElasticity  # noqa: F401
 from .plasticity import (  # noqa: F401

@@ -3,8 +3,9 @@
 A behavior maps a dict of differentiable inputs (gradients + external state
 variables) to a dict of fluxes plus a new internal-state dict, and declares
 its signature (gradient, flux and state sizes). A behavior may also supply a
-whole-batch ``batched_update(eps (n,6), state, dt) -> (sig, Ct (n,36),
-state)`` with an analytic tangent; :class:`~..material.Material` prefers it.
+whole-batch ``batched_update(x, state, dt) -> (flux, Ct, state)`` (J2:
+strains (n,6) -> stresses and Ct (n,36); finite strain: F (n,9) -> PK1 and
+Ct (n,81)); :class:`~..material.Material` prefers it.
 
 Consistent tangents are not part of the protocol: ``Material`` computes every
 declared tangent block in one forward-mode Jacobian pass over the per-point
@@ -66,9 +67,12 @@ class SmallStrainBehavior(Behavior):
 
 class FiniteStrainBehavior(Behavior):
     """Finite-strain mechanics: deformation gradient F (9,) -> PK1 stress
-    (9,), vector convention [11,22,33,12,21,13,31,23,32]. A declaration only:
-    no finite-strain law is ported yet. Subclasses implement
-    ``finite_strain_update(F, state, dt)``."""
+    (9,), vector convention [11,22,33,12,21,13,31,23,32]; the consistent
+    tangent dPK1/dF is (9, 9), 81 wide flattened row-major (PK1 row, F
+    column). Subclasses implement ``finite_strain_update(F, state, dt)``
+    (models/hyperelasticity.py: PK1 as the gradient of an energy) and may
+    add a whole-batch ``batched_update(F (n,9), state, dt) -> (PK1 (n,9),
+    Ct (n,81), state)``."""
 
     gradients = {"F": 9}
     fluxes = {"PK1": 9}

@@ -485,3 +485,35 @@ def fixed_sum(vals, plan: SumPlan):
             raise ValueError("fixed_sum: CPU values with a CUDA plan")
         return fixed_sum_reference(vals, plan)
     return _launch(vals, plan, "csr", banded_take_csr)
+
+
+def balance_cell_slots(cells, cell_type):
+    """Permute each cell's vertex list (orientation-preserving) to even out
+    how often each vertex lands in each local slot: the assembly plan's
+    entries per slot then drop from the largest valence toward valence/nloc.
+    Tets take the even permutations (3-cycles fixing vertex 0 and one double
+    transposition), other cells the cyclic rotations.
+
+    A strided greedy: cells are taken in 128 interleaved strides
+    (``cells[k::128]``), so a vertex's incident cells, contiguous after a
+    min-vertex sort, fall in different strides and see each other's counts;
+    per stride each cell takes the permutation of least summed
+    (vertex, slot) count, then the counts are updated. Host-side numpy."""
+    cells = np.asarray(cells)
+    ne, nv = cells.shape
+    if cell_type == "tetrahedron":
+        perms = np.array([(0, 1, 2, 3), (0, 2, 3, 1), (0, 3, 1, 2), (1, 0, 3, 2)])
+    else:
+        perms = np.array([np.roll(np.arange(nv), -r) for r in range(nv)])
+    S = 128
+    slot_count = np.zeros((int(cells.max()) + 1, nv), np.int32)
+    out = np.empty_like(cells)
+    arange_nv = np.arange(nv)
+    for k in range(min(S, ne)):
+        idx = np.arange(k, ne, S)
+        cand = cells[idx][:, perms]  # (b, nperm, nv)
+        best = np.argmin(slot_count[cand, arange_nv].sum(axis=2), axis=1)
+        chosen = np.take_along_axis(cand, best[:, None, None], axis=1)[:, 0]
+        out[idx] = chosen
+        np.add.at(slot_count, (chosen, arange_nv), 1)
+    return out.astype(cells.dtype)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..fem.forms import mixed_tangent_dtype
 from ..ops import banded_gather as bg
 from ..ops import j2_cuda
 from ..ops.banded_gather import fixed_sum, gather_map, plan_fixed_sum
@@ -151,7 +152,8 @@ def make_sharded_newton_step(qmap, problem, mesh: DeviceMesh, axis="cells", n_ne
     a thin configuration of :func:`make_sharded_newton_step_general`.
 
     Returns ``step(u, internal_state, bc_mask, bc_vals, dt=0.0) -> (u_new,
-    new_internal_state, res_norm)`` and the single-state ``pad_state``."""
+    new_internal_state, res_norm)`` and the single-state ``pad_state``;
+    ``step.info`` and ``step.cg`` are the general step's."""
     terms = getattr(problem, "_terms", None)
     if not terms or len(terms) != 1 or terms[0]["qmap"] is not qmap:
         raise ValueError(
@@ -169,8 +171,10 @@ def make_sharded_newton_step(qmap, problem, mesh: DeviceMesh, axis="cells", n_ne
 
     def step(u, internal_state, bc_mask, bc_vals, dt=0.0):
         u_new, new_states, res_norm = gstep(u, [internal_state], bc_mask, bc_vals, dt)
+        step.info = gstep.info
         return u_new, new_states[0], res_norm
 
+    step.info, step.cg = gstep.info, gstep.cg
     return step, pad_state
 
 
@@ -426,12 +430,13 @@ class _Term:
 @dataclass
 class _Inputs:
     """What one precision's evaluations read: per-term states and scales, the
-    external force and the time step."""
+    external force, the time step and the dtype of the element kernels."""
 
     states: list
     scales: list
     f_ext: torch.Tensor
     dt: float
+    dtype: torch.dtype
 
 
 def make_sharded_newton_step_general(
@@ -455,7 +460,8 @@ def make_sharded_newton_step_general(
     ``return_info=True`` also ``res0`` (the entering residual), with
     ``return_info="stats"`` also ``(newton_its, cg_its_total)``. ``states``
     is a list of per-qmap internal-state dicts. ``step.info`` holds the
-    last call's counts, split by phase.
+    last call's counts, split by phase, the residual norm Newton measured
+    against (``res0``) and the dtype of its CG operands.
 
     The loops are the JAX step's: Newton while ``res > rtol res0 + atol``
     and fewer than ``n_newton`` iterations (``rtol`` defaults to 1e-10 for
@@ -473,10 +479,14 @@ def make_sharded_newton_step_general(
     (node blocks) or None (block on 3D vector spaces).
 
     ``precision="mixed"`` (a float64 problem): residual, constitutive update
-    and line search in f64, the tangents and the CG in f32 on the
+    and line search in f64, the tangents and the CG in a low dtype on the
     symmetrically diagonally scaled operator; with ``f32_warmup`` Newton
-    first runs on an all-f32 copy of the problem until its progress stalls
-    (at least one f64 iteration is left for the polish).
+    first runs on a low-dtype copy of the problem until its progress stalls
+    (at least one f64 iteration is left for the polish). The low dtype is
+    the one the JAX package's element kernel produces for the problem's
+    kinematics (``fem.forms.mixed_tangent_dtype``): float32 for deformation
+    gradients, float64 for Mandel strains, whose float64 sqrt(2) promotes
+    the JAX package's "f32" tangent and CG under x64.
 
     ``axis`` (a name or a tuple of the mesh's names) and ``shard_dofs`` are
     accepted: on one device the JAX step's collectives are the identity.
@@ -499,14 +509,20 @@ def make_sharded_newton_step_general(
     f_hi = problem.dtype
     if mixed and f_hi != torch.float64:
         raise ValueError("precision='mixed' needs a float64 problem (the f64 residual path)")
-    f_lo = torch.float32 if mixed else f_hi
+    f_lo = torch.float32 if mixed else f_hi  # the warmup's u and residual
+    # under "mixed" the element kernels of the tangents, the CG and the
+    # warmup run in the dtype the JAX package's element kernel produces:
+    # float64 for Mandel strains (its sqrt(2) constant promotes), float32
+    # for deformation gradients
+    f_K = mixed_tangent_dtype(
+        [e for t in problem._terms for e in t["qmap"].gradient_exprs.values()]) if mixed else f_hi
     space = problem.u.space
     ndofs, nc = space.num_dofs, space.ncomp
     nnodes = ndofs // nc
     use_block = (smoother or ("block" if nc >= 3 else "jacobi")) == "block" and nc > 1
     if rtol is None:
         rtol = 1e-10 if (mixed or f_hi == torch.float64) else 1e-6
-    dtypes = sorted({f_hi, f_lo}, key=str)
+    dtypes = sorted({f_hi, f_lo, f_K}, key=str)
     terms = [_Term(t, use_stencil, use_banded, dtypes, device) for t in problem._terms]
 
     # ---- coarse space: tables, the fixed-order sums of Ac and restriction
@@ -562,10 +578,11 @@ def make_sharded_newton_step_general(
 
     # ---- evaluations ----------------------------------------------------
     def evaluate(u, inp: _Inputs, mask, cast_K):
-        """``(R, K_es, new_states)`` at u: the full constitutive update, the
-        residual (in u's dtype) and the element tangents (f32 from cast
-        inputs under ``cast_K``)."""
-        dt = u.dtype
+        """``(R, K_es, new_states)`` at u: the full constitutive update and
+        the element kernels in ``inp.dtype``, the residual rounded to u's
+        dtype, the element tangents cast to ``f_K`` under ``cast_K``."""
+        dt = inp.dtype
+        u_w, u = u, u.to(dt)
         R = torch.zeros(ndofs, dtype=dt, device=device)
         K_es, new_states = [], []
         for term, st, sc in zip(terms, inp.states, inp.scales):
@@ -576,19 +593,21 @@ def make_sharded_newton_step_general(
             Cs = [sc[k] * Ct[:, sl].reshape(n, sy, sx) for (k, sl, sy, sx) in term.tstruct]
             K = term.fns[dt]["Kel"](u, flds, Cs)
             if cast_K:
-                K = K.to(f_lo)
+                K = K.to(f_K)
             K_es.append(K)
             new_states.append(st_new)
-        return torch.where(mask, zero(dt), R - inp.f_ext), K_es, new_states
+        return torch.where(mask, zero(dt), R - inp.f_ext).to(u_w.dtype), K_es, new_states
 
     def rnorm(u, inp: _Inputs, mask):
-        """The residual norm from flux-only updates (line-search trials)."""
-        dt = u.dtype
+        """The residual norm from flux-only updates (line-search trials), in
+        u's dtype."""
+        dt = inp.dtype
+        u_w, u = u, u.to(dt)
         R = torch.zeros(ndofs, dtype=dt, device=device)
         for term, st, sc in zip(terms, inp.states, inp.scales):
             flux, _, st_new = term.integrate(term.inputs(u, dt), st, dt, inp.dt, True)
             R = R + term.fns[dt]["residual"](u, term.fields(flux, st_new, sc))
-        R = torch.where(mask, zero(dt), R - inp.f_ext)
+        R = torch.where(mask, zero(dt), R - inp.f_ext).to(u_w.dtype)
         return float(torch.sqrt(torch.dot(R, R)))
 
     def assemble_diag(K_es, dtype):
@@ -749,16 +768,19 @@ def make_sharded_newton_step_general(
         scales = [[float(s) for s in ss] for ss in scales]
         f_ext = (torch.zeros(ndofs, dtype=f_hi, device=device) if f_ext is None
                  else torch.as_tensor(f_ext, device=device).to(f_hi))
-        inp = _Inputs(states, scales, f_ext, float(dt))
+        inp = _Inputs(states, scales, f_ext, float(dt), f_hi)
         u = torch.where(mask, vals, u)
         info = dict(warmup_newton=0, warmup_cg=0)
 
         res032 = None
         if mixed and f32_warmup:
-            # Newton on an all-f32 copy of the problem: the entering states
-            # feed every evaluation, so the warmup's states are dropped
-            inp32 = _Inputs([_tmap(lambda a: a.to(f_lo) if a.is_floating_point() else a, st)
-                                   for st in states], scales, f_ext.to(f_lo), float(dt))
+            # Newton on an f32 copy of the problem (u, states, residual),
+            # its element kernels in f_K: the entering states feed every
+            # evaluation, so the warmup's states are dropped
+            def lo(a):
+                return a.to(f_lo).to(f_K) if a.is_floating_point() else a
+
+            inp32 = _Inputs([_tmap(lo, st) for st in states], scales, lo(f_ext), float(dt), f_K)
             u32 = u.to(f_lo)
             R32, K_es, _ = evaluate(u32, inp32, mask, False)
             res = float(torch.sqrt(torch.dot(R32, R32)))
@@ -781,6 +803,7 @@ def make_sharded_newton_step_general(
             info.update(warmup_newton=it32, warmup_cg=cg32)
 
         R, K_es, st_out = evaluate(u, inp, mask, mixed)
+        info["cg_dtype"] = K_es[0].dtype
         res_t = torch.sqrt(torch.dot(R, R))
         res = float(res_t)
         if res032 is not None:
@@ -800,7 +823,7 @@ def make_sharded_newton_step_general(
             n_it += 1
             cg_sum += cg_k
         n_total, cg_total = n_it + info["warmup_newton"], cg_sum + info["warmup_cg"]
-        info.update(polish_newton=n_it, polish_cg=cg_sum, newton=n_total, cg=cg_total)
+        info.update(polish_newton=n_it, polish_cg=cg_sum, newton=n_total, cg=cg_total, res0=res0)
         step.info = info
         new_states = [{k: v[: term.npts] for k, v in st.items()} for term, st in zip(terms, st_out)]
         if return_info == "stats":

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 jdm = pytest.importorskip("dolfinx_materials_tpu")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from dolfinx_materials_tpu import fem as jfem  # noqa: E402
 from dolfinx_materials_tpu import models as jmodels  # noqa: E402
@@ -354,14 +355,52 @@ def test_mixed_precision_two_materials():
     tangent in float64 on the CPU (its Mandel constant is a numpy float64,
     which promotes under x64), so its CG runs in f64 and its counts are not
     the port's: u and state are held to 1e-8 of their scale, both steps
-    reaching 1e-10 of the entering residual. At a 1e12 inclusion the JAX
-    step still converges and the port's f32 tangent does not: an open fault
-    (ROADMAP.md Queue 3)."""
+    reaching 1e-10 of the entering residual. The port's CG now follows the
+    JAX package's dtype (see the 1e12 case below)."""
     build = contrast_plate(1e10)
     t, j = run("torch", build, **MIXED), run("jax", build, **MIXED)
     assert t[0].dtype == np.float64
     assert t[2] < 1e-10 * t[3] and j[2] < 1e-10 * j[3]
     assert_same(t, j, counts=False)
+
+
+def test_mixed_precision_high_contrast_1e12():
+    """precision="mixed" at a 1e12 inclusion in a 1e5 matrix, held against
+    the unpatched JAX step run as tests/test_mixed_precision.py runs it. The
+    JAX package's Mandel forms carry a numpy float64 sqrt(2), so under x64
+    its "f32" tangent and CG are float64; the port gives Mandel kinematics
+    the same float64 tangent and CG, and its warmup the same f32 u and
+    residual over float64 element kernels (fem.forms.mixed_tangent_dtype).
+    Both reach a relative residual below 1e-8 and agree on u to 1e-6. Both
+    spend their Newton budget at the residual floor (~5e-10, above rtol =
+    1e-10), where the CG runs its 200-iteration budget: 14 Newton and 2,053
+    CG iterations here against 2,055, so the counts are not compared."""
+    build = contrast_plate(1e12)
+    t, j = run("torch", build, **MIXED), run("jax", build, **MIXED)
+    assert t[2] < 1e-8 * t[3] and j[2] < 1e-8 * j[3]
+    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=1e-6 * np.abs(j[0]).max())
+
+    P = PKGS["torch"]
+    mats, V, bcs, prob = build(P)
+    step, pad = tpar.make_sharded_newton_step_general(prob, tpar.device_mesh(1, devices=["cpu"]), **MIXED)
+    mask, vals = tcombine(bcs, V.num_dofs)
+    step(np.zeros(V.num_dofs), pad([m.data_manager.s0.internal for m in mats]), mask, vals, 0.0)
+    # the JAX package's tangent dtype on this problem: the variation of its
+    # Mandel strain at float32 inputs
+    ctx = jforms.Ctx(jnp.zeros(2, jnp.float32), jnp.zeros((2, 2), jnp.float32), jnp.zeros(2, jnp.float32))
+    _, dstrain = jax.jvp(lambda g: jforms.mandel_strain_2d()(ctx._replace(grad=g)), (ctx.grad,),
+                         (jnp.ones((2, 2), jnp.float32),))
+    assert str(step.info["cg_dtype"]).split(".")[-1] == str(dstrain.dtype) == "float64"
+
+
+def test_mixed_tangent_dtype_follows_the_kinematics():
+    """The rule of ``precision="mixed"``: float64 tangents and CG for Mandel
+    strains, float32 for deformation gradients and untagged expressions."""
+    f = tforms
+    assert f.mixed_tangent_dtype([f.mandel_strain_2d()]) == torch.float64
+    assert f.mixed_tangent_dtype([f.mandel_strain(3), f.scalar_value()]) == torch.float64
+    assert f.mixed_tangent_dtype([f.deformation_gradient(3)]) == torch.float32
+    assert f.mixed_tangent_dtype([f.deformation_gradient_2d(), lambda ctx: ctx.u]) == torch.float32
 
 
 # ------------------------------------------------------- pieces of the step
