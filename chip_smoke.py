@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs thirteen phases; any failure
+(sm_90a) into ``build/kernels/`` and runs fifteen phases; any failure
 exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -65,7 +65,16 @@ exits non-zero before the result line is printed:
     SVK inclusions at 1e12, cfg (2, 1, 3), 10 mixed steps;
 13. the tet block at N = 4, the composite at cfg (1, 1, 2) and the hex
     block at N = 3 in f32, 3 steps each, on the card and on the CPU: u to
-    1e-6 on the mixed protocols, to 1e-5 in f32.
+    1e-6 on the mixed protocols, to 1e-5 in f32;
+14. law programs (run right after phase 2): both J2 kernels running a
+    traced hardening law (a tanh law and Voce written as a lambda) at 2^21
+    points, f32 and f64, both layouts, against the plain return map on the
+    same program within phase 2's tolerances, the Voce lambda also against
+    the built-in Voce kernel, each timed beside the built-in one;
+15. the README's plane demo twin at its default N = 24 on the card (K1, K3
+    and K4 launches, its VTK read back), at N = 6 on the card and the CPU
+    (steps, forces, max p to 1e-8; the continuous projection of p to
+    1e-10), and the curved-cylinder twin at N = 6 on both.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -147,11 +156,11 @@ def kernel_name(mangled):
     """A readable name for the ptxas report of this repository's kernel
     templates (their mangled template arguments); others as mangled."""
     dt = {"f": "f32", "d": "f64"}
-    m = re.search(r"j2_radial_return_kernelI([fd])Lb([01])ELb([01])E", mangled)
+    m = re.search(r"(j2_radial_return_kernel|j2_law_program_kernel)I([fd])Lb([01])ELb([01])E", mangled)
     if m:
-        form = "factored" if m.group(2) == "1" else "full"
-        layout = "feature-major" if m.group(3) == "1" else "point-major"
-        return f"j2_radial_return_kernel<{dt[m.group(1)]}, {form}, {layout}>"
+        form = "factored" if m.group(3) == "1" else "full"
+        layout = "feature-major" if m.group(4) == "1" else "point-major"
+        return f"{m.group(1)}<{dt[m.group(2)]}, {form}, {layout}>"
     m = re.search(r"compact_take_kernelI([fd])Lb([01])E", mangled)
     if m:
         return f"compact_take_kernel<{dt[m.group(1)]}, {'ell' if m.group(2) == '1' else 'csr'}>"
@@ -181,13 +190,14 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 2
-def j2_ops_per_point(n_iter, factored=False):
+def j2_ops_per_point(n_iter, factored=False, hardening_ops=10):
     """Floating-point operations of one point of the J2 kernels, counted from
     csrc/j2_radial_return.cu: trial state and norm ~45, each hardening
-    evaluation ~10 (one exp or pow counted as one), each Newton step ~8,
-    stress/state update ~30, the two tangent factors ~15, and for the full
-    tangent 36 x 4 more."""
-    return 45 + 10 * (n_iter + 2) + 8 * n_iter + 30 + 15 + (0 if factored else 36 * 4)
+    evaluation ``hardening_ops`` (~10 for a closed form, one exp or pow
+    counted as one; ~3 an instruction of a law program, value and slope),
+    each Newton step ~8, stress/state update ~30, the two tangent factors
+    ~15, and for the full tangent 36 x 4 more."""
+    return 45 + hardening_ops * (n_iter + 2) + 8 * n_iter + 30 + 15 + (0 if factored else 36 * 4)
 
 
 def j2_bytes(n, dtype, factored=False):
@@ -1452,6 +1462,190 @@ def phase_ogden_cpu():
             raise AssertionError(f"ogden-cpu: {name} card and CPU disagree")
 
 
+# ------------------------------------------------------------------ phase 14
+def user_law(p):
+    """A hardening law with no closed form in the kernels: it runs there as a
+    law program (tests/test_torch_cuda.py's user_law)."""
+    return 350.0 + 2e3 * p + 50.0 * torch.tanh(100.0 * p)
+
+
+def voce_lambda(p):
+    """The Voce law of [j2] written as a plain callable: a law program."""
+    return SIG0 + (SIGU - SIG0) * (1.0 - torch.exp(-B_VOCE * p))
+
+
+def phase_law():
+    """[law]: both J2 kernels running a law program (ops/law_program.py) at
+    2^21 points, f32 and f64, both layouts, j2_fast contract, against the
+    plain return map driven by the same program, within [j2]'s tolerances;
+    the Voce lambda also against the built-in LAW_VOCE kernel; call, device
+    and host times of each beside the built-in Voce kernel's. Returns the
+    worst f64 error of each kernel and the f64 point-major timings of each
+    law."""
+    from dolfinx_materials_tpu_torch.models import LinearElasticIsotropic, VoceHardening
+    from dolfinx_materials_tpu_torch.ops import j2_cuda
+    from dolfinx_materials_tpu_torch.ops.law_program import LAW_PROGRAM, trace_law
+
+    t0 = time.perf_counter()
+    el = LinearElasticIsotropic(E, NU)
+    voce = VoceHardening(SIG0, SIGU, B_VOCE)
+    laws = {"voce_builtin": voce, "voce_lambda": voce_lambda, "user_law": user_law}
+    c = j2_cuda.J2_FAST_CONTRACT
+    base = j2_inputs(J2_N, 7, DEVICE)
+    worst = {"full": 0.0, "factored": 0.0}
+    timed = {}
+    for dtype in (torch.float32, torch.float64):
+        builtin = {}
+        for lname, law in laws.items():
+            program = None if lname == "voce_builtin" else trace_law(law)
+            # the same inputs for both Voce forms: off the yield surface of the closed form
+            eps = off_yield_surface(*base, el, voce if lname.startswith("voce") else law)
+            layouts = {"feature": feature_major(eps, base[1], base[2], dtype),
+                       "point": point_major(eps, base[1], base[2], dtype)}
+            del eps
+            for kname in ("full", "factored"):
+                factored = kname == "factored"
+                launch = j2_cuda.J2Launch(el, law, factored=factored, **c)
+                if (launch.law_id == LAW_PROGRAM) != (program is not None):
+                    raise AssertionError(f"[law] {lname}: law id {launch.law_id}")
+                for layout, args in layouts.items():
+                    fm = layout == "feature"
+                    out = launch(*args, feature_major=fm)
+                    ref = launch.plain(*args, el, program or law, feature_major=fm, **c)
+                    torch.cuda.synchronize()
+                    errs = j2_errors(out, ref, dtype)
+                    if dtype == torch.float64:
+                        worst[kname] = max(worst[kname], max(float((o - r).abs().max()) for o, r in zip(out, ref)))
+                    del ref
+                    if lname == "voce_builtin":
+                        builtin[(kname, layout)] = out
+                    elif lname == "voce_lambda":
+                        vs = j2_errors(out, builtin[(kname, layout)], dtype)
+                        errs.update({f"vs_builtin_{k}": v for k, v in vs.items()})
+                    tol = J2_TOL[dtype]
+                    ok = all(v <= tol[k.replace("vs_builtin_", "")] for k, v in errs.items())
+
+                    def call():
+                        return launch(*args, feature_major=fm)
+
+                    n_ins = 0 if program is None else len(program.code)
+                    row = dict(
+                        ms=cuda_ms(call), device_ms=graph_ms(call, n=J2_GRAPH), host_us=host_us(call, n=J2_HOST),
+                        plain_ms=cuda_ms(lambda: launch.plain(*args, el, program or law, feature_major=fm, **c),
+                                         reps=3),
+                        bound=bound_ms(j2_bytes(J2_N, dtype, factored),
+                                       j2_ops_per_point(c["n_iter"], factored, 3 * n_ins or 10) * J2_N, dtype),
+                        instructions=n_ins,
+                    )
+                    log(f"[law] {kname:8s} {str(dtype)[6:]:8s} {lname:12s} {layout:7s} instructions={n_ins} err "
+                        + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                        + f" call_ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} host_us={row['host_us']:.1f}"
+                        f" bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) plain_ms={row['plain_ms']:.3f} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"[law] J2 {kname} kernel with {lname} disagrees: {dtype} {layout}")
+                    if dtype == torch.float64 and layout == "point":
+                        timed[(kname, lname)] = row
+                    del out
+            del layouts
+        del builtin
+    for kname in ("full", "factored"):
+        b = timed[(kname, "voce_builtin")]["device_ms"]
+        log(f"[law] {kname} f64 point-major device ms: builtin Voce {b:.4f}, "
+            + ", ".join(f"{ln} {timed[(kname, ln)]['device_ms']:.4f} ({timed[(kname, ln)]['device_ms'] / b:.2f}x)"
+                        for ln in ("voce_lambda", "user_law")))
+    log(f"[law] {time.perf_counter() - t0:.1f}s")
+    return worst, timed
+
+
+# ------------------------------------------------------------------ phase 15
+DEMO_N = 24  # the plane demo's default: 24 x 48 Q2 quads, 10,368 Gauss points
+DEMO_SMALL_N = 6
+DEMO_CYLINDER_N = 6
+DEMO_TOL = 1e-8  # card against CPU: reaction forces and max p, relative
+DEMO_CG_TOL = 1e-10  # project_on("p", ("CG", 1)) card against CPU, of its scale
+
+
+def read_vtk_cell_scalar(path, name):
+    """One cell scalar of a legacy ASCII VTK file (fem/io.py write_vtk)."""
+    lines = open(path).read().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("CELL_DATA")).split()[1])
+    k = lines.index(f"SCALARS {name} double 1") + 2
+    return np.array([float(v) for v in lines[k:k + n]])
+
+
+def phase_demo():
+    """[demo]: the README's plane demo twin (demos/plane_elastoplasticity.py)
+    at its default N = 24 on the card, counting K1/K3/K4 launches (each must
+    be non-zero), its VTK read back; the same twin at N = 6 on the card and
+    the CPU (the same accepted steps, forces and max p to 1e-8), and
+    project_on("p", ("CG", 1)) of one p field on the card and on the CPU to
+    1e-10; the curved-cylinder twin at N = 6 on both, its Lame errors on the
+    card bounded by the CPU's. Returns the N = 24 run's launch counts."""
+    import os
+    import tempfile
+
+    from dolfinx_materials_tpu_torch.demos import curved_cylinder, plane_elastoplasticity
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t = time.perf_counter()
+        full = plane_elastoplasticity.main(DEMO_N, device=DEVICE, out_dir=tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        qmap = full["qmap"]
+        p_vtk = read_vtk_cell_scalar(os.path.join(tmp, "plane_elastoplasticity.vtk"), "p")
+        p_cells = qmap.project_on("p", ("DG", 0)).ravel()
+        vtk_err = float(np.abs(p_vtk - p_cells).max() / np.abs(p_cells).max())  # written with 10 digits
+        ok = (counts["j2_radial_return"] > 0 and counts["banded_take_ell"] > 0 and counts["banded_take_csr"] > 0
+              and qmap.domain.banded_active and abs(full["steps"][-1] - 6 * SIG0 / E * LY) < 1e-12
+              and len(p_vtk) == qmap.domain.ne and vtk_err <= 1e-9 and full["max_p"] > 0)
+        log(f"[demo] plane N={DEMO_N}: {qmap.num_points} Gauss points, {qmap.space.num_dofs} dofs, "
+            f"{len(full['steps'])} steps in {wall:.2f}s, max p {full['max_p']:.6e}, last force "
+            f"{full['forces'][-1]:.6e}; launches {counts}; VTK read back err {vtk_err:.1e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[demo] plane demo at full size: load program, VTK or launch counts wrong")
+        small = {}
+        for dev in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            small[dev] = plane_elastoplasticity.main(DEMO_SMALL_N, device=dev, out_dir=tmp)
+            small[dev]["seconds"] = time.perf_counter() - t
+    card, cpu = small[DEVICE], small["cpu"]
+    f_err = rel_err(torch.tensor(card["forces"]), torch.tensor(cpu["forces"]), max(abs(f) for f in cpu["forces"]))
+    p_err = abs(card["max_p"] - cpu["max_p"]) / cpu["max_p"]
+    # one p field projected on both: the card run's, copied into the CPU map
+    p_card = card["qmap"].material.data_manager.s1["p"]
+    cpu["qmap"].material.data_manager.s1["p"] = p_card.cpu()
+    space, cg_card = card["qmap"].project_on("p", ("CG", 1))
+    _, cg_cpu = cpu["qmap"].project_on("p", ("CG", 1))
+    cg_err = float(np.abs(cg_card - cg_cpu).max() / np.abs(cg_cpu).max())
+    ok = (card["steps"] == cpu["steps"] and f_err <= DEMO_TOL and p_err <= DEMO_TOL and cg_err <= DEMO_CG_TOL
+          and cg_card.shape == (space.num_dofs, 1))
+    log(f"[demo] plane N={DEMO_SMALL_N}: card {card['seconds']:.2f}s, cpu {cpu['seconds']:.2f}s, steps "
+        f"{card['steps'] == cpu['steps']} ({len(cpu['steps'])}), forces rel err {f_err:.2e}, max p rel err "
+        f"{p_err:.2e} (tol {DEMO_TOL:g}); project_on p CG1 card vs cpu {cg_err:.2e} (tol {DEMO_CG_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[demo] plane demo: card and CPU disagree")
+    errs = {}
+    for dev in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        errs[dev] = curved_cylinder.main(DEMO_CYLINDER_N, device=dev)
+        errs[dev]["seconds"] = time.perf_counter() - t
+    ok = all(errs[DEVICE][k] <= errs["cpu"][k] * (1 + DEMO_TOL) for k in ("straight", "curved")) \
+        and errs["cpu"]["curved"] < errs["cpu"]["straight"]
+    log(f"[demo] curved_cylinder N={DEMO_CYLINDER_N}: Lame max rel err card straight "
+        f"{errs[DEVICE]['straight']:.6e} curved {errs[DEVICE]['curved']:.6e} ({errs[DEVICE]['seconds']:.2f}s) | cpu "
+        f"straight {errs['cpu']['straight']:.6e} curved {errs['cpu']['curved']:.6e} ({errs['cpu']['seconds']:.2f}s) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[demo] curved cylinder: card errors above the CPU's")
+    log(f"[demo] {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1464,6 +1658,7 @@ def main():
     smi = phase_build()
     f64 = torch.float64
     j2_worst = phase_j2()
+    law_worst, law_timed = phase_law()
     takes = phase_take(nx_full, OGDEN_TET_N)
     phase_slice_cpu_vs_card()
     counts, grads, state, behavior, problem = phase_main(nx_full)
@@ -1481,6 +1676,7 @@ def main():
     fused_counts, fused_factors = phase_fused(nx_full, fast)
     ogden = {"ogden_tet": phase_ogden_tet(), "ogden_hex": phase_ogden_hex(), "composite": phase_composite()}
     phase_ogden_cpu()
+    demo_counts = phase_demo()
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -1496,7 +1692,8 @@ def main():
                     "bound_ms": total(lambda r: r["bound"], ks), "library_ms": total(lambda r: r["t_l"], ks)}
 
         by_path = {"main": counts[name], "fused": fused_counts[name],
-                   **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")}}
+                   **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")},
+                   "demo": demo_counts[name]}
         plate = times(keys)
         return {
             "name": name, "route": "cuda",
@@ -1511,23 +1708,28 @@ def main():
             "p2_tet": times(tet_keys),
         }
 
-    def j2_row(name, replaces, by_path, timed, worst):
+    def j2_row(name, replaces, by_path, timed, worst, kname):
+        # the law programs of [law] (f64, point-major, 2^21 points) beside
+        # the built-in Voce closed form on the same inputs
+        programs = {ln: {k: r[k] for k in ("ms", "device_ms", "host_us", "plain_ms", "instructions")}
+                    | {"bound_ms": r["bound"][0]} for (kn, ln), r in law_timed.items() if kn == kname}
         return {
             "name": name, "route": "cuda",
             "source": "dolfinx_materials_tpu_torch/csrc/j2_radial_return.cu",
             "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path,
             **({"fused_launches_from": fused_factors[name]} if "fused" in by_path else {}),
-            "max_abs_err": max(timed["max_abs_err"], worst),
+            "max_abs_err": max(timed["max_abs_err"], worst, law_worst[kname]),
             "ms": timed["ms"], "device_ms": timed["device_ms"], "host_us": timed["host_us"],
             "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-            "bound_by": timed["bound_by"], "library_ms": None,
+            "bound_by": timed["bound_by"], "library_ms": None, "law_programs": programs,
         }
 
     kernels = [
         j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
-               {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"]}, k1, j2_worst["full"]),
+               {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"],
+                "demo": demo_counts["j2_radial_return"]}, k1, j2_worst["full"], "full"),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
-               {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"]),
+               {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"], "factored"),
         take_row("banded_take_csr", "csr", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
         take_row("banded_take_ell", "ell", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
     ]

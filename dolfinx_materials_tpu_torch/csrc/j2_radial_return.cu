@@ -11,12 +11,13 @@
 //   j2_radial_return_factored_f32/_f64: Ct as the two scalars
 //   fac = [2 mu beta, gamma]; nbar = dev(sig)/q(sig) is recovered from the
 //   returned stress (the return keeps the deviatoric direction).
-// One kernel template, instantiated per dtype, tangent form (FACTORED) and
-// layout (FEATURE_MAJOR): feature-major (components, n) arrays as the TPU
-// kernels took them, or point-major (n, components) as the FEM path holds
-// them. The same kernels serve the j2_fast contract (ops/j2_fast.py: cold
-// start, 12 iterations, regularizer 1e-14) and the Pallas one (warm start, 4
-// iterations, regularizer 1e-7): both are parameters.
+// One kernel template, instantiated per dtype, tangent form (FACTORED), law
+// form (PROGRAM, below) and layout (FEATURE_MAJOR): feature-major
+// (components, n) arrays as the TPU kernels took them, or point-major (n,
+// components) as the FEM path holds them. The same kernels serve the
+// j2_fast contract (ops/j2_fast.py: cold start, 12 iterations, regularizer
+// 1e-14) and the Pallas one (warm start, 4 iterations, regularizer 1e-7):
+// both are parameters.
 //
 // Bound on this card: bytes. A point reads 13 values and writes 49 with the
 // full tangent (62 in all) or 15 with the factored one (28): about 2 flops a
@@ -75,10 +76,20 @@
 // otherwise every slab moves value by value. Tile starts are multiples of
 // TILE points, so an aligned array gives aligned slabs.
 //
-// The TPU kernel evaluates the hardening curve with jax.jvp on any callable;
-// here the value and slope are closed forms for the laws with a law id
-// (models/hardening.py: Linear, Voce, Swift, Ramberg-Osgood); a user callable
-// with no closed form runs the plain PyTorch return map, on the CPU only.
+// The TPU kernel evaluates the hardening curve with jax.jvp on any callable.
+// Here the four laws of models/hardening.py (Linear, Voce, Swift,
+// Ramberg-Osgood) keep closed forms for value and slope; any other traceable
+// law arrives as a program (ops/law_program.py, law id LAW_PROGRAM): an SSA
+// list of at most MAX_INS instructions that hardening() interprets, carrying
+// value and slope as a dual pair in T. The program is a kernel argument by
+// value (__grid_constant__: read in place, never copied per thread), so it
+// sits in the constant bank: every thread of a warp reads the same
+// instruction (a broadcast) and takes the same branch of the switch, so the
+// interpreter adds no divergence. Its two slot arrays are indexed at
+// run time and live in local memory (L1), 16 bytes a slot used in f64.
+// Programs run in a kernel of their own (j2_law_program_kernel, the same
+// body with PROGRAM set), so the closed-form kernel keeps its parameters and
+// code.
 
 #include <cuda_runtime.h>
 
@@ -91,6 +102,8 @@ constexpr int LAW_LINEAR = 0;
 constexpr int LAW_VOCE = 1;
 constexpr int LAW_SWIFT = 2;
 constexpr int LAW_RAMBERG_OSGOOD = 3;
+constexpr int LAW_PROGRAM = 4;
+constexpr int MAX_INS = 64;    // instructions of a law program (ops/law_program.py)
 constexpr int TILE = 128;      // points of a block, one thread each
 constexpr int MIN_BLOCKS = 5;  // resident blocks asked of ptxas: <= 96 registers
 constexpr int SF = 9;          // shared row stride of the factors b2m, gamma, nbar[6]
@@ -114,6 +127,25 @@ struct NoStiffness {};
 template <typename T, bool FACTORED>
 using Tangent = std::conditional_t<FACTORED, NoStiffness, Stiffness<T>>;
 
+// A traced hardening law: instruction k reads slots a[k], b[k] (slot 0 is p)
+// and the constant c[k], and writes slot k + 1; sigma_Y is slot out. The
+// opcodes are ops/law_program.py's OPS, in order.
+enum Op : unsigned char {
+  OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_ADD_C, OP_MUL_C, OP_DIV_C, OP_RSUB_C,
+  OP_RDIV_C, OP_POW_C, OP_C_POW, OP_NEG, OP_EXP, OP_LOG, OP_LOG1P, OP_EXPM1, OP_SQRT,
+  OP_TANH, OP_ABS, OP_CLAMP_LO, OP_CLAMP_HI, OP_MAX_C, OP_MIN_C
+};
+template <typename T>
+struct LawProgram {
+  int n, out;
+  unsigned char op[MAX_INS], a[MAX_INS], b[MAX_INS];
+  T c[MAX_INS];
+};
+// the closed-form instantiations take no program
+struct NoProgram {};
+template <typename T, bool PROGRAM>
+using Program = std::conditional_t<PROGRAM, LawProgram<T>, NoProgram>;
+
 template <typename T>
 __device__ __forceinline__ T relu(T x) { return x > T(0) ? x : T(0); }
 
@@ -124,10 +156,84 @@ __device__ __forceinline__ float dpow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double dpow(double x, double y) { return ::pow(x, y); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return ::sqrt(x); }
+__device__ __forceinline__ float dlog(float x) { return logf(x); }
+__device__ __forceinline__ double dlog(double x) { return ::log(x); }
+__device__ __forceinline__ float dlog1p(float x) { return log1pf(x); }
+__device__ __forceinline__ double dlog1p(double x) { return ::log1p(x); }
+__device__ __forceinline__ float dexpm1(float x) { return expm1f(x); }
+__device__ __forceinline__ double dexpm1(double x) { return ::expm1(x); }
+__device__ __forceinline__ float dtanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double dtanh(double x) { return ::tanh(x); }
 
+// Value and slope of a law program at p, in the order of
+// ops/law_program.py's evaluate(); slopes at a tie as torch.func.jvp gives
+// them (clamp passes the slope, maximum/minimum half of it)
 template <typename T>
-__device__ __forceinline__ void hardening(const J2Params<T>& P, T p, T& Y, T& dY) {
-  if (P.law == LAW_LINEAR) {  // sig0 + H p
+struct Dual {
+  T v, d;
+};
+// not inlined, and the value and slope come back by value (no address
+// taken of the caller's)
+template <typename T>
+__device__ __noinline__ Dual<T> run_program(const LawProgram<T>& L, T p) {
+  T v[MAX_INS + 1], d[MAX_INS + 1];
+  v[0] = p;
+  d[0] = T(1);
+  for (int k = 0; k < L.n; ++k) {
+    const T va = v[L.a[k]], da = d[L.a[k]];
+    const T vb = v[L.b[k]], db = d[L.b[k]];
+    const T c = L.c[k];
+    T r, dr;
+    switch (L.op[k]) {
+      case OP_CONST: r = c; dr = T(0); break;
+      case OP_ADD: r = va + vb; dr = da + db; break;
+      case OP_SUB: r = va - vb; dr = da - db; break;
+      case OP_MUL: r = va * vb; dr = da * vb + va * db; break;
+      case OP_DIV: r = va / vb; dr = (da - r * db) / vb; break;
+      case OP_ADD_C: r = va + c; dr = da; break;
+      case OP_MUL_C: r = va * c; dr = da * c; break;
+      case OP_DIV_C: r = va / c; dr = da / c; break;
+      case OP_RSUB_C: r = c - va; dr = -da; break;
+      case OP_RDIV_C: r = c / va; dr = -(r / va) * da; break;
+      case OP_POW_C: r = dpow(va, c); dr = c == T(0) ? T(0) : c * dpow(va, c - T(1)) * da; break;
+      case OP_C_POW: r = dpow(c, va); dr = c == T(0) ? T(0) : r * dlog(c) * da; break;
+      case OP_NEG: r = -va; dr = -da; break;
+      case OP_EXP: r = dexp(va); dr = r * da; break;
+      case OP_LOG: r = dlog(va); dr = da / va; break;
+      case OP_LOG1P: r = dlog1p(va); dr = da / (T(1) + va); break;
+      case OP_EXPM1: r = dexpm1(va); dr = (r + T(1)) * da; break;
+      case OP_SQRT: r = dsqrt(va); dr = da / (T(2) * r); break;
+      case OP_TANH: r = dtanh(va); dr = (T(1) - r * r) * da; break;
+      case OP_ABS:
+        r = va < T(0) ? -va : va;
+        dr = va > T(0) ? da : (va < T(0) ? -da : T(0));
+        break;
+      case OP_CLAMP_LO: r = va < c ? c : va; dr = va >= c ? da : T(0); break;
+      case OP_CLAMP_HI: r = va > c ? c : va; dr = va <= c ? da : T(0); break;
+      case OP_MAX_C:
+        r = va < c ? c : va;
+        dr = va > c ? da : (va == c ? T(0.5) * da : T(0));
+        break;
+      default:  // OP_MIN_C
+        r = va > c ? c : va;
+        dr = va < c ? da : (va == c ? T(0.5) * da : T(0));
+        break;
+    }
+    v[k + 1] = r;
+    d[k + 1] = dr;
+  }
+  return {v[L.out], d[L.out]};
+}
+
+// PROGRAM: a law program (j2_law_program_kernel); else the closed forms
+template <typename T, bool PROGRAM>
+__device__ __forceinline__ void hardening(const J2Params<T>& P, const Program<T, PROGRAM>& L, T p,
+                                          T& Y, T& dY) {
+  if constexpr (PROGRAM) {
+    const Dual<T> y = run_program(L, p);
+    Y = y.v;
+    dY = y.d;
+  } else if (P.law == LAW_LINEAR) {  // sig0 + H p
     Y = P.h0 + P.h1 * p;
     dY = P.h1;
   } else if (P.law == LAW_VOCE) {  // sig0 + (sigu - sig0)(1 - exp(-b p))
@@ -155,9 +261,9 @@ struct PointOut {
 
 // One point's return map; both layouts run it, so their sig, eps_p_new,
 // p_new and factors are the same arithmetic
-template <typename T>
-__device__ __forceinline__ PointOut<T> return_map(const J2Params<T>& P, const T (&eps)[6],
-                                                  const T (&ep)[6], const T p) {
+template <typename T, bool PROGRAM>
+__device__ __forceinline__ PointOut<T> return_map(const J2Params<T>& P, const Program<T, PROGRAM>& L,
+                                                  const T (&eps)[6], const T (&ep)[6], const T p) {
   const T mu = P.mu;
   T e[6];
 #pragma unroll
@@ -176,7 +282,7 @@ __device__ __forceinline__ PointOut<T> return_map(const J2Params<T>& P, const T 
   }
 
   T Y0, dY0;
-  hardening(P, p, Y0, dY0);
+  hardening<T, PROGRAM>(P, L, p, Y0, dY0);
   const T tiny = (P.reg * (T(1) + Y0)) * (P.reg * (T(1) + Y0));
   T ss = T(0);
 #pragma unroll
@@ -195,12 +301,12 @@ __device__ __forceinline__ PointOut<T> return_map(const J2Params<T>& P, const T 
   }
   for (int it = 0; it < P.n_iter; ++it) {
     T Y, dY;
-    hardening(P, p + dp, Y, dY);
+    hardening<T, PROGRAM>(P, L, p + dp, Y, dY);
     const T r = f_act - T(3) * mu * dp - (Y - Y0);
     dp = relu(dp - r / (-T(3) * mu - dY));
   }
   T Yn, Hp;
-  hardening(P, p + dp, Yn, Hp);
+  hardening<T, PROGRAM>(P, L, p + dp, Yn, Hp);
 
   PointOut<T> o;
 #pragma unroll
@@ -317,16 +423,17 @@ __device__ __forceinline__ void stage_out(T* __restrict__ g, int len, bool vec, 
   for (int k = k0 + threadIdx.x; k < len; k += TILE) g[k] = value(k);
 }
 
+// The kernels' body, inlined into the two kernels below.
 // FACTORED = false: tg is Ct (36 wide), Cm a Stiffness<T>;
 // FACTORED = true:  tg is fac (2 wide), Cm a NoStiffness.
 // vec: every array starts on 16 bytes (point-major only).
-template <typename T, bool FACTORED, bool FEATURE_MAJOR>
-__global__ void __launch_bounds__(TILE, MIN_BLOCKS)
-j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
-                        const T* __restrict__ p_in, T* __restrict__ sig,
-                        T* __restrict__ tg, T* __restrict__ epspn,
-                        T* __restrict__ pn, long long n, const J2Params<T> P,
-                        const Tangent<T, FACTORED> Cm, bool vec) {
+template <typename T, bool FACTORED, bool FEATURE_MAJOR, bool PROGRAM>
+__device__ __forceinline__ void j2_body(const T* __restrict__ eps, const T* __restrict__ epsp,
+                                        const T* __restrict__ p_in, T* __restrict__ sig,
+                                        T* __restrict__ tg, T* __restrict__ epspn,
+                                        T* __restrict__ pn, long long n, const J2Params<T>& P,
+                                        const Program<T, PROGRAM>& L, const Tangent<T, FACTORED>& Cm,
+                                        bool vec) {
   if constexpr (FEATURE_MAJOR) {
     // element (f, i) of a (w, n) array at f * n + i
     const long long i = (long long)blockIdx.x * TILE + threadIdx.x;
@@ -337,7 +444,7 @@ j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
       e[f] = eps[f * n + i];
       ep[f] = epsp[f * n + i];
     }
-    const PointOut<T> o = return_map(P, e, ep, p_in[i]);
+    const PointOut<T> o = return_map<T, PROGRAM>(P, L, e, ep, p_in[i]);
 #pragma unroll
     for (int f = 0; f < 6; ++f) {
       sig[f * n + i] = o.sig[f];
@@ -395,7 +502,7 @@ j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
           e[f] = s_e[6 * j + f];
           ep[f] = s_ep[6 * j + f];
         }
-        const PointOut<T> o = return_map(P, e, ep, s_p[j]);
+        const PointOut<T> o = return_map<T, PROGRAM>(P, L, e, ep, s_p[j]);
 #pragma unroll
         for (int f = 0; f < 6; ++f) {
           s_e[6 * j + f] = o.sig[f];
@@ -428,15 +535,48 @@ j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
   }
 }
 
+// The closed-form laws (law id 0-3)
+template <typename T, bool FACTORED, bool FEATURE_MAJOR>
+__global__ void __launch_bounds__(TILE, MIN_BLOCKS)
+j2_radial_return_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
+                        const T* __restrict__ p_in, T* __restrict__ sig,
+                        T* __restrict__ tg, T* __restrict__ epspn,
+                        T* __restrict__ pn, long long n, const J2Params<T> P,
+                        const Tangent<T, FACTORED> Cm, bool vec) {
+  j2_body<T, FACTORED, FEATURE_MAJOR, false>(eps, epsp, p_in, sig, tg, epspn, pn, n, P, NoProgram{},
+                                             Cm, vec);
+}
+
+// A law program (LAW_PROGRAM): a kernel of its own, so the closed-form
+// kernel keeps the parameter list and the code it had without programs
+template <typename T, bool FACTORED, bool FEATURE_MAJOR>
+__global__ void __launch_bounds__(TILE, MIN_BLOCKS)
+j2_law_program_kernel(const T* __restrict__ eps, const T* __restrict__ epsp,
+                      const T* __restrict__ p_in, T* __restrict__ sig,
+                      T* __restrict__ tg, T* __restrict__ epspn,
+                      T* __restrict__ pn, long long n, const J2Params<T> P,
+                      const __grid_constant__ LawProgram<T> L, const Tangent<T, FACTORED> Cm,
+                      bool vec) {
+  j2_body<T, FACTORED, FEATURE_MAJOR, true>(eps, epsp, p_in, sig, tg, epspn, pn, n, P, L, Cm, vec);
+}
+
+template <typename T, bool FACTORED, bool FEATURE_MAJOR, bool PROGRAM>
+constexpr auto kernel_of() {
+  if constexpr (PROGRAM)
+    return j2_law_program_kernel<T, FACTORED, FEATURE_MAJOR>;
+  else
+    return j2_radial_return_kernel<T, FACTORED, FEATURE_MAJOR>;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
 
 // Blocks of the point-major kernel that the card holds at once: the
 // persistent grid. Asked once per instantiation, of the device current then
 // (a grid of any size gives the same results).
-template <typename T, bool FACTORED>
+template <typename T, bool FACTORED, bool PROGRAM>
 long long resident_blocks() {
   static const long long blocks = [] {
-    auto kernel = j2_radial_return_kernel<T, FACTORED, false>;
+    auto kernel = kernel_of<T, FACTORED, false, PROGRAM>();
     // all of the SM's shared memory, for as many resident blocks as it holds
     cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                          cudaSharedmemCarveoutMaxShared);
@@ -447,6 +587,27 @@ long long resident_blocks() {
     return (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
   }();
   return blocks;
+}
+
+template <typename T, bool FACTORED, bool PROGRAM>
+void launch_kernel(const T* eps, const T* epsp, const T* p, T* sig, T* tg, T* epspn, T* pn,
+                   long long n, const J2Params<T>& P, const Program<T, PROGRAM>& L,
+                   const Tangent<T, FACTORED>& Cm, int feature_major, cudaStream_t st) {
+  const long long tiles = (n + TILE - 1) / TILE;
+  bool vec = false;
+  unsigned grid = (unsigned)tiles;
+  if (!feature_major) {
+    vec = aligned16(eps) && aligned16(epsp) && aligned16(p) && aligned16(sig) && aligned16(tg) &&
+          aligned16(epspn) && aligned16(pn);
+    const long long resident = resident_blocks<T, FACTORED, PROGRAM>();
+    grid = (unsigned)(tiles < resident ? tiles : resident);
+  }
+  const auto kernel = feature_major ? kernel_of<T, FACTORED, true, PROGRAM>()
+                                    : kernel_of<T, FACTORED, false, PROGRAM>();
+  if constexpr (PROGRAM)
+    kernel<<<grid, TILE, 0, st>>>(eps, epsp, p, sig, tg, epspn, pn, n, P, L, Cm, vec);
+  else
+    kernel<<<grid, TILE, 0, st>>>(eps, epsp, p, sig, tg, epspn, pn, n, P, Cm, vec);
 }
 
 template <typename T, bool FACTORED>
@@ -469,17 +630,26 @@ int launch(const T* eps, const T* epsp, const T* p, T* sig, T* tg, T* epspn, T* 
   if constexpr (!FACTORED) {
     for (int k = 0; k < 36; ++k) Cm.C[k] = T(params[7 + k]);
   }
-  const long long tiles = (n + TILE - 1) / TILE;
   cudaStream_t st = (cudaStream_t)stream;
-  if (feature_major) {
-    j2_radial_return_kernel<T, FACTORED, true><<<(unsigned)tiles, TILE, 0, st>>>(
-        eps, epsp, p, sig, tg, epspn, pn, n, P, Cm, false);
+  if (law == LAW_PROGRAM) {  // n, out, then op, a, b, c per instruction after C[36]
+    LawProgram<T> L;
+    const double* prog = params + 43;
+    L.n = (int)prog[0];
+    L.out = (int)prog[1];
+    if (L.n < 0 || L.n > MAX_INS || L.out < 0 || L.out > L.n) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < L.n; ++k) {
+      const double* ins = prog + 2 + 4 * k;
+      if (ins[0] < 0 || ins[0] > OP_MIN_C || ins[1] < 0 || ins[1] > k || ins[2] < 0 || ins[2] > k)
+        return (int)cudaErrorInvalidValue;
+      L.op[k] = (unsigned char)ins[0];
+      L.a[k] = (unsigned char)ins[1];
+      L.b[k] = (unsigned char)ins[2];
+      L.c[k] = T(ins[3]);
+    }
+    launch_kernel<T, FACTORED, true>(eps, epsp, p, sig, tg, epspn, pn, n, P, L, Cm, feature_major, st);
   } else {
-    const bool vec = aligned16(eps) && aligned16(epsp) && aligned16(p) && aligned16(sig) &&
-                     aligned16(tg) && aligned16(epspn) && aligned16(pn);
-    const long long resident = resident_blocks<T, FACTORED>();
-    j2_radial_return_kernel<T, FACTORED, false><<<(unsigned)(tiles < resident ? tiles : resident), TILE, 0, st>>>(
-        eps, epsp, p, sig, tg, epspn, pn, n, P, Cm, vec);
+    launch_kernel<T, FACTORED, false>(eps, epsp, p, sig, tg, epspn, pn, n, P, NoProgram{}, Cm,
+                                      feature_major, st);
   }
   return (int)cudaGetLastError();
 }
@@ -487,7 +657,8 @@ int launch(const T* eps, const T* epsp, const T* p, T* sig, T* tg, T* epspn, T* 
 }  // namespace
 
 // params (host): mu, lmbda, h0, h1, h2, h3, reg, then C[36] (read by the
-// full-tangent entry points only)
+// full-tangent entry points only), then for law == LAW_PROGRAM the program:
+// n, out, and op, a, b, c per instruction
 #define J2_ENTRY(NAME, T, FACTORED)                                                    \
   extern "C" int NAME(const T* eps, const T* epsp, const T* p, T* sig, T* tg,         \
                       T* epspn, T* pn, long long n, const double* params, int law,     \

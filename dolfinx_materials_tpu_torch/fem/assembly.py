@@ -55,7 +55,9 @@ class QuadratureDomain:
             else np.asarray(cells, dtype=np.int32)
         )
         elem = ReferenceElement(mesh.cell_type, space.degree, quad_degree)
-        geo = ReferenceElement(mesh.cell_type, 1, quad_degree)  # multilinear geometry
+        # isoparametric: a curved mesh (geom_degree 2, fem/mesh.py curve_mesh)
+        # maps through the degree-2 element, a straight one is multilinear
+        geo = ReferenceElement(mesh.cell_type, mesh.geom_degree, quad_degree)
         self.element = elem
         self.nq = elem.nq
         self.ne = len(self.cells)
@@ -64,7 +66,10 @@ class QuadratureDomain:
         self.ncomp = space.ncomp
         self.ndof_el = self.nloc * self.ncomp
 
-        coords = mesh.points[mesh.cells[self.cells]]  # (ne, nverts, dim)
+        if mesh.geom_degree == 1:
+            coords = mesh.points[mesh.cells[self.cells]]  # (ne, nverts, dim)
+        else:
+            coords = mesh.geom_points[mesh.geom_cells[self.cells]]  # (ne, ngeom, dim)
         J = np.einsum("cvi,qvj->cqij", coords, geo.dN)
         detJ = np.linalg.det(J)
         invJ = np.linalg.inv(J)
@@ -386,3 +391,40 @@ def project_dg0(domain: QuadratureDomain, values_q):
     v = values_q.reshape(domain.ne, domain.nq, -1)
     num = torch.einsum("eq,eqk->ek", domain.wdetJ, v)
     return num / domain.cell_volumes[:, None]
+
+
+def assemble_scalar(domain: QuadratureDomain, values_q):
+    """∫ f dx over the domain, ``values_q`` at the quadrature points
+    ((ne*nq,) or a scalar); a 0-d tensor on the domain's device."""
+    v = torch.as_tensor(values_q, dtype=domain.dtype, device=domain.device)
+    v = v.reshape(-1).expand(domain.num_points).reshape(domain.ne, domain.nq)
+    return torch.sum(domain.wdetJ * v)
+
+
+def project_cg(domain: QuadratureDomain, values_q, degree=1, smooth=None):
+    """L2 projection of a quadrature field onto the continuous Lagrange space
+    of ``degree`` on the same mesh: one mass-matrix CG solve per component
+    (tolerance 1e-12, Jacobi preconditioner, the solvers' ``cg``) on the
+    target domain's device, its gathers and assembly on the target domain's
+    routes (the banded kernels where it has plans). ``smooth``: a Helmholtz
+    filter length, adding ``smooth**2 ∫ grad(Pv).grad(w) dx`` to the
+    operator. Returns ``(space, dof values (nnodes, k) numpy)``."""
+    from ..solvers import cg
+
+    target = FunctionSpace(domain.space.mesh, degree, ())
+    tdom = QuadratureDomain(target, domain.quad_degree, domain.cells, dtype=domain.dtype,
+                            device=domain.device)
+    vals = torch.as_tensor(values_q, dtype=domain.dtype, device=domain.device).reshape(domain.ne, domain.nq, -1)
+    Me = torch.einsum("eq,qi,qj->eij", tdom.wdetJ, tdom.N, tdom.N)
+    if smooth is not None:
+        Me = Me + float(smooth) ** 2 * torch.einsum("eq,eqid,eqjd->eij", tdom.wdetJ, tdom.dNdx, tdom.dNdx)
+    rhs_e = torch.einsum("eq,qi,eqc->eic", tdom.wdetJ, tdom.N, vals)
+    diag = tdom.scatter_dofs(torch.diagonal(Me, dim1=1, dim2=2).contiguous())
+    diag = torch.where(diag <= 0, torch.ones_like(diag), diag)
+    K = tdom.spmv_prepare(Me)
+    cols = []
+    for c in range(vals.shape[-1]):
+        b = tdom.scatter_dofs(rhs_e[:, :, c].contiguous())
+        x, _ = cg(lambda v: tdom.spmv(K, v), b, 1e-12, 10 * target.num_dofs, lambda v: v / diag)
+        cols.append(x)
+    return target, torch.stack(cols, dim=1).cpu().numpy()

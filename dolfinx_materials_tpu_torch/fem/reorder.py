@@ -51,13 +51,14 @@ def _snake_order(points):
 
 def reorder_mesh(mesh: Mesh, balance_slots=True, verbose=False):
     """A bandwidth-reduced copy of ``mesh``. Structured meshes (``mesh.grid``
-    set) are returned unchanged: the stencil route needs no reordering.
+    set) are returned unchanged: the stencil route needs no reordering; so
+    are curved ones.
 
     The copy carries ``vertex_perm`` and ``vertex_inverse`` (new vertex id =
     ``vertex_inverse[old id]``) and ``cell_order`` (new cell c was old cell
     ``cell_order[c]``), for callers with per-vertex or per-cell data."""
-    if mesh.grid is not None:
-        return mesh
+    if mesh.grid is not None or mesh.geom_degree != 1:
+        return mesh  # curved meshes keep their geometry-node numbering
     nv = mesh.num_vertices
     candidates = {"natural": np.arange(nv), "rcm": _rcm_order(mesh.cells, nv),
                   "snake": _snake_order(mesh.points)}

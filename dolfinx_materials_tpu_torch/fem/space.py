@@ -47,6 +47,7 @@ class FunctionSpace:
                 # FACETS indices [0, 1, 2, 4, 5, 3]
                 face_verts, cell_faces = mesh.faces()
                 self._face_verts = face_verts
+                self._face_node_offset = nv + ne  # canonical id of face 0's node
                 parts.append(mesh.points[face_verts].mean(axis=1))
                 cn.append(nv + ne + cell_faces[:, [0, 1, 2, 4, 5, 3]])
                 parts.append(mesh.points[mesh.cells].mean(axis=1))
@@ -56,6 +57,11 @@ class FunctionSpace:
                 )
             self.node_coords = np.vstack(parts)
             self.cell_nodes = np.hstack(cn).astype(np.int32)
+            if mesh.geom_degree == 2:
+                # isoparametric: the nodes sit at the curved geometry nodes
+                # (the same canonical layout, fem/mesh.py curve_mesh)
+                assert mesh.geom_points.shape == self.node_coords.shape
+                self.node_coords = mesh.geom_points
             if renumber:
                 self._renumber_nodes()
         else:
@@ -94,6 +100,14 @@ class FunctionSpace:
             self.cell_nodes = inv[cn].astype(np.int32)
             self.node_renum = inv.astype(np.int32)
 
+    def dof_coords(self):
+        """Coordinates of every dof (repeated per component), (ndofs, dim)."""
+        return np.repeat(self.node_coords, self.ncomp, axis=0)
+
+    def component_dofs(self, comp: int):
+        """All global dofs of one vector component."""
+        return np.arange(self.num_nodes) * self.ncomp + comp
+
 
 class Function:
     """A dof vector bound to a space. ``x`` is a host numpy array of the
@@ -105,3 +119,15 @@ class Function:
         self.dtype = dtype
         self._np_dtype = torch.empty((), dtype=dtype).numpy().dtype
         self.x = np.zeros(space.num_dofs, dtype=self._np_dtype)
+
+    def interpolate(self, fn):
+        """Set the dofs from ``fn: node coords (n, dim) -> values (n,) or (n,
+        ncomp)``."""
+        vals = np.asarray(fn(self.space.node_coords))
+        self.x = vals.reshape(self.space.num_dofs).astype(self._np_dtype).copy()
+        return self
+
+    def copy(self):
+        g = Function(self.space, self.name, self.dtype)
+        g.x = self.x.copy()
+        return g

@@ -3,9 +3,11 @@
 The four laws shipped here also report ``kernel_law() -> (law_id, params)``
 (up to four parameters): the CUDA return maps evaluate their value and slope
 in closed form, and the ids match ``csrc/j2_radial_return.cu``. Any other
-callable (a user function) runs through the plain PyTorch return map on the
-CPU, which differentiates it with ``torch.func``; on the card the return maps
-raise for it.
+callable (a user function) is traced once into a law program
+(ops/law_program.py) that the same kernels interpret on the card; the plain
+PyTorch return map on the CPU differentiates the callable with
+``torch.func``. A callable that is not a program (a branch on the value, an
+operation the program has no instruction for) raises on the card.
 """
 
 from __future__ import annotations

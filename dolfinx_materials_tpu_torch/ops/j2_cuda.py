@@ -40,19 +40,24 @@ import torch
 
 from . import tensors
 from .cuda_build import check, function
+from .law_program import LAW_PROGRAM, LawProgram, evaluate, trace_law
 
 PALLAS_CONTRACT = dict(n_iter=4, warm_start=True, reg=1e-7)
 J2_FAST_CONTRACT = dict(n_iter=12, warm_start=False, reg=1e-14)
 
 
 def kernel_law(yield_stress):
-    """``(law_id, params)`` of a hardening law the kernel evaluates in closed
-    form, else None (the kernels then raise for it on the card)."""
+    """How the kernels evaluate a hardening law: ``(law_id, params)`` of a
+    closed form (models/hardening.py), else ``(LAW_PROGRAM, program)`` with
+    the law traced once (:mod:`.law_program`); raises ``TypeError`` for a law
+    that is not a program."""
     fn = getattr(yield_stress, "kernel_law", None)
-    return None if fn is None else fn()
+    return (LAW_PROGRAM, trace_law(yield_stress)) if fn is None else fn()
 
 
 def _value_and_slope(yield_stress, p):
+    if isinstance(yield_stress, LawProgram):  # the kernel's arithmetic
+        return evaluate(yield_stress, p)
     return torch.func.jvp(yield_stress, (p,), (torch.ones_like(p),))
 
 
@@ -164,11 +169,15 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p] + [ctyp
 
 def pack_params(elasticity, hardening, reg):
     """The kernels' parameter block (float64): ``mu, lmbda, h0..h3, reg``,
-    then the Mandel stiffness ``C`` row-major (36 values)."""
-    h = list(hardening) + [0.0] * (4 - len(hardening))
+    then the Mandel stiffness ``C`` row-major (36 values); for a law program
+    (``hardening`` a :class:`~.law_program.LawProgram`) h0..h3 are 0 and
+    the packed program follows."""
+    program = hardening if isinstance(hardening, LawProgram) else None
+    h = [0.0] * 4 if program is not None else list(hardening) + [0.0] * (4 - len(hardening))
     C = tensors.isotropic_C(elasticity.E, elasticity.nu)
     return np.concatenate(
         [[float(elasticity.mu), float(elasticity.lmbda), *h, reg], C.ravel()]
+        + ([program.pack()] if program is not None else [])
     ).astype(np.float64)
 
 
@@ -182,7 +191,10 @@ class J2Launch:
     The parameters are read when the launch is built, as the JAX package's
     kernels read them when they are made: change them through
     ``Material.update_material_property`` (which drops the behavior's cached
-    update, and this launch with it) or with new objects, not in place.
+    update, and this launch with it) or with new objects, not in place. A law
+    without a closed form is traced into a program here, once; a law that is
+    not a program keeps its ``TypeError`` for the first launch on the card
+    (the plain version on the CPU takes any callable).
     """
 
     def __init__(self, elasticity, yield_stress, *, factored, n_iter, warm_start, reg):
@@ -193,10 +205,13 @@ class J2Launch:
         self.wrapper = j2_radial_return_factored if factored else j2_radial_return
         self.plain = j2_radial_return_factored_reference if factored else j2_radial_return_reference
         self.width = 2 if factored else 36
-        law = kernel_law(yield_stress)
-        # a law without a closed form: None, and the launch raises on the card
-        self.law_id = None if law is None else int(law[0])
-        self.params = None if law is None else pack_params(elasticity, law[1], reg)
+        try:
+            law_id, law = kernel_law(yield_stress)
+        except TypeError as exc:  # raised again by a launch on the card
+            self.law_id, self.params, self.law_error = None, None, exc
+        else:
+            self.law_id, self.law_error = int(law_id), None
+            self.params = pack_params(elasticity, law, reg)
         self._fns = {}
 
     def __call__(self, eps, eps_p, p, feature_major=True):
@@ -214,11 +229,8 @@ class J2Launch:
         what = self.wrapper.__name__
         if not eps.is_cuda:
             raise ValueError(f"{what}: unsupported device {eps.device}")
-        if self.law_id is None:
-            raise TypeError(
-                f"{what}: {type(self.yield_stress).__name__} has no in-kernel "
-                "form; give it a kernel_law() or run on the CPU"
-            )
+        if self.law_error is not None:
+            raise TypeError(f"{what}: the hardening law has no in-kernel form: {self.law_error}")
         dtype = eps.dtype
         fn = self._fns.get(dtype)
         if fn is None:
@@ -269,7 +281,7 @@ def j2_radial_return(eps, eps_p, p, elasticity, yield_stress, *, n_iter,
 
     Returns ``(sig, Ct, eps_p_new, p_new)`` in the input layout. Raises for a
     CUDA tensor the kernel does not take (dtype, shape, contiguity, device, a
-    hardening law without a closed form) or a failed launch.
+    hardening law that is not a program) or a failed launch.
     """
     launch = J2Launch(elasticity, yield_stress, factored=False, n_iter=n_iter,
                       warm_start=warm_start, reg=reg)

@@ -22,13 +22,13 @@ def make_j2_batched_update(elasticity, yield_stress, n_iter=12):
     """Returns ``batched(eps (n,6), state {eps_p (n,6), p (n,)}, dt) ->
     (sig (n,6), Ct_flat (n,36), new_state)``.
 
-    The four hardening laws of models/hardening.py run inside the kernel. A
-    user callable runs on the card only if it reports its closed form through
-    ``kernel_law()``; without one the update raises ``TypeError`` on CUDA
-    tensors (on CPU tensors the plain version takes any callable). The
-    kernel's launch (:class:`~.j2_cuda.J2Launch`, ``batched.launch``) is built
-    here, once: the parameters are those of ``elasticity`` and
-    ``yield_stress`` now.
+    The four hardening laws of models/hardening.py run inside the kernel in
+    closed form; any other traceable callable runs inside it as a law program
+    (ops/law_program.py), traced here once. A law that is not a program
+    raises ``TypeError`` on CUDA tensors (on CPU tensors the plain version
+    takes any callable). The kernel's launch (:class:`~.j2_cuda.J2Launch`,
+    ``batched.launch``) is built here, once: the parameters are those of
+    ``elasticity`` and ``yield_stress`` now.
     """
     launch = J2Launch(elasticity, yield_stress, factored=False,
                       **dict(J2_FAST_CONTRACT, n_iter=n_iter))

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fem.assembly import QuadratureDomain, project_dg0
+from .fem.assembly import QuadratureDomain, project_cg, project_dg0
 from .fem.space import FunctionSpace
 from .material import Material
 from .utils.timers import timer
@@ -148,10 +148,27 @@ class QuadratureMap:
         self.material.data_manager.s0[field] = value
         self.material.data_manager.s1[field] = value
 
-    def project_on(self, name: str, kind=("DG", 0)):
-        """``("DG", 0)`` projection (cell averages, (ne, k) numpy) of a state
-        field. Continuous projections are not ported yet."""
-        vals = self.material.data_manager.s1[name]
+    def project_on(self, name: str, kind=("DG", 0), smooth=None):
+        """Project a quadrature state field: ``("DG", 0)`` -> cell averages
+        (ne, k) numpy; ``("P"|"CG"|"Lagrange", deg)`` -> continuous L2
+        projection, ``(FunctionSpace, dof values (nnodes, k) numpy)``, with
+        ``smooth`` the Helmholtz filter length of :func:`project_cg`.
+
+        A ``name`` that is no field collects every field that starts with it,
+        sorted by name, into one vector field (array-valued internal
+        variables stored under flattened names, ``p0``, ``p1``, ...)."""
+        s1 = self.material.data_manager.s1
+        try:
+            vals = s1[name]
+        except KeyError:
+            matches = sorted(k for k in s1.keys() if k.startswith(name))
+            if not matches:
+                raise KeyError(
+                    f"no state field named or prefixed '{name}' (fields: {s1.keys()})"
+                ) from None
+            vals = torch.cat([s1[k].reshape(self.num_points, -1) for k in matches], dim=1)
         if kind[0] in ("DG", "dg") and kind[1] == 0:
             return project_dg0(self.domain, vals).cpu().numpy()
+        if kind[0] in ("P", "CG", "Lagrange"):
+            return project_cg(self.domain, vals, degree=kind[1], smooth=smooth)
         raise NotImplementedError(kind)

@@ -443,6 +443,7 @@ class NonlinearMaterialProblem:
         zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
 
         if self.ksp_type == "lu":
+            import scipy.sparse as sp
             import scipy.sparse.linalg as spla
 
             ndofs = rhs.shape[0]
@@ -450,13 +451,20 @@ class NonlinearMaterialProblem:
             for t, K_e in zip(self._terms, Kels):
                 Ai = t["qmap"].domain.to_scipy_csr(K_e, ndofs)
                 A = Ai if A is None else A + Ai
-            A = A.tolil()
-            bc_idx = np.nonzero(mask.cpu().numpy())[0]
-            A[bc_idx, :] = 0.0
-            A[:, bc_idx] = 0.0
-            A[bc_idx, bc_idx] = 1.0
+            # Dirichlet rows and columns dropped, a unit diagonal put in their
+            # place: the matrix (structure, order and values) that zeroing
+            # them in a LIL copy gives, in a fraction of its host time
+            bc = mask.cpu().numpy()
+            bc_idx = np.nonzero(bc)[0]
+            C = A.tocoo()
+            keep = ~(bc[C.row] | bc[C.col])
+            A = sp.coo_matrix(
+                (np.concatenate([C.data[keep], np.ones(len(bc_idx))]),
+                 (np.concatenate([C.row[keep], bc_idx]), np.concatenate([C.col[keep], bc_idx]))),
+                shape=A.shape,
+            ).tocsr()
             b = torch.where(mask, zero, rhs).cpu().numpy()
-            return self._tensor(spla.spsolve(A.tocsr(), b)), 0
+            return self._tensor(spla.spsolve(A, b)), 0
 
         Av, b, M = self._cg_system(Kels, rhs, mask)
         du, its = KRYLOV[self.ksp_type](Av, b, tol, self.ksp_maxiter, M)

@@ -70,6 +70,14 @@ class MaterialStateManager:
             return torch.zeros((self.n, 0), dtype=self.dtype, device=self.device)
         return torch.cat([self.internal[k].reshape(self.n, -1) for k in self._isv_slices], dim=1)
 
+    def set_internal_from_flat(self, arr) -> None:
+        """Set the internal state from a flat ``(n, total_isv)`` array in the
+        column order of :attr:`internal_state_variables` (sorted by name)."""
+        arr = torch.as_tensor(arr, dtype=self.dtype, device=self.device)
+        for k, sl in self._isv_slices.items():
+            leaf = self.internal[k]
+            self.internal[k] = arr[:, sl].reshape(leaf.shape).to(leaf.dtype).clone()
+
     def __getitem__(self, name: str) -> torch.Tensor:
         if name in self._grad_slices:
             return self.gradients[:, self._grad_slices[name]]

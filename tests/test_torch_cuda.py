@@ -38,8 +38,14 @@ LAWS = {
 
 
 def user_law(p):
-    """A hardening callable with no closed form in the kernel."""
+    """A hardening callable with no closed form in the kernel: it runs there
+    as a law program (ops/law_program.py)."""
     return 350.0 + 2e3 * p + 50.0 * torch.tanh(100.0 * p)
+
+
+def branching_law(p):
+    """A hardening callable that is not a program (a branch on the value)."""
+    return 350.0 + 2e3 * p if p > 0.01 else 370.0 + 0.0 * p
 
 
 @pytest.fixture
@@ -183,7 +189,7 @@ def test_j2_wrapper_raises_instead_of_falling_back(card):
     args = [torch.zeros(s, dtype=torch.float64, device=card) for s in ((6, 256), (6, 256), (1, 256))]
     for wrapper in (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_factored):
         with pytest.raises(TypeError, match="no in-kernel form"):
-            wrapper(*args, el, user_law, **j2_cuda.J2_FAST_CONTRACT)
+            wrapper(*args, el, branching_law, **j2_cuda.J2_FAST_CONTRACT)
         with pytest.raises(ValueError, match="contiguous"):
             wrapper(args[0].T.contiguous().T, *args[1:], el, LAWS["voce"], **j2_cuda.J2_FAST_CONTRACT)
         with pytest.raises(ValueError, match="expected"):
@@ -192,19 +198,45 @@ def test_j2_wrapper_raises_instead_of_falling_back(card):
             wrapper(*(a.half() for a in args), el, LAWS["voce"], **j2_cuda.J2_FAST_CONTRACT)
 
 
-def test_law_without_kernel_form_raises_on_the_card(card):
-    """A user callable with no closed form raises on the card, through the
-    fast path of Material.integrate too, launches nothing and still runs on
-    the CPU (the Ramberg-Osgood law itself runs inside the kernel, see
-    test_j2_kernel_matches_plain)."""
+def test_traced_law_runs_inside_the_kernel(card):
+    """A user callable with no closed form runs inside the kernel as a law
+    program, through the fast path of Material.integrate too: each call
+    launches the kernel once and matches the plain version on the CPU (the
+    callable differentiated by torch.func) to 1e-12 of each field's scale."""
     el = models.LinearElasticIsotropic(E, 0.3)
     upd = make_j2_batched_update(el, user_law)
+    eps, eps_p, p = (torch.as_tensor(a, device=card) for a in j2_inputs(4099))
+    before = j2_cuda.j2_radial_return.launches
+    got = upd(eps, {"eps_p": eps_p, "p": p}, 0.0)
+    assert j2_cuda.j2_radial_return.launches == before + 1
+    want = upd(eps.cpu(), {"eps_p": eps_p.cpu(), "p": p.cpu()}, 0.0)
+    got = [got[0], got[1], got[2]["eps_p"], got[2]["p"]]
+    want = [want[0], want[1], want[2]["eps_p"], want[2]["p"]]
+    assert float((want[3] - p.cpu()).max()) > 1e-3, "must exercise the plastic branch"
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-12 * float(w.abs().max())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mat = tdm.Material(models.vonMisesIsotropicHardening(el, user_law), device=dev)
+        before = j2_cuda.j2_radial_return.launches
+        out[dev] = [t.cpu() for t in mat.integrate(eps.cpu().numpy(), 0.0)]
+        assert j2_cuda.j2_radial_return.launches == before + (dev == "cuda")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
+def test_untraceable_law_raises_on_the_card(card):
+    """A law that is not a program raises on the card, through the fast path
+    of Material.integrate too, launches nothing and still runs on the CPU."""
+    el = models.LinearElasticIsotropic(E, 0.3)
+    law = lambda p: 350.0 + 100.0 * torch.sin(p)  # noqa: E731 — no sin instruction
+    upd = make_j2_batched_update(el, law)
     eps, eps_p, p = (torch.as_tensor(a, device=card) for a in j2_inputs(512))
     before = j2_cuda.j2_radial_return.launches
-    with pytest.raises(TypeError, match="no in-kernel form"):
+    with pytest.raises(TypeError, match="unsupported operation sin"):
         upd(eps, {"eps_p": eps_p, "p": p}, 0.0)
-    mat = tdm.Material(models.vonMisesIsotropicHardening(el, user_law), device="cuda")
-    with pytest.raises(TypeError, match="no in-kernel form"):
+    mat = tdm.Material(models.vonMisesIsotropicHardening(el, law), device="cuda")
+    with pytest.raises(TypeError, match="unsupported operation sin"):
         mat.integrate(eps.cpu().numpy(), 0.0)
     assert j2_cuda.j2_radial_return.launches == before
     sig, _, _ = upd(eps.cpu(), {"eps_p": eps_p.cpu(), "p": p.cpu()}, 0.0)

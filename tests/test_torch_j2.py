@@ -27,6 +27,7 @@ import dolfinx_materials_tpu_torch as tdm  # noqa: E402
 from dolfinx_materials_tpu_torch import models as tmodels  # noqa: E402
 from dolfinx_materials_tpu_torch.ops import j2_cuda  # noqa: E402
 from dolfinx_materials_tpu_torch.ops.j2_fast import make_j2_batched_update  # noqa: E402
+from dolfinx_materials_tpu_torch.ops.law_program import LAW_PROGRAM  # noqa: E402
 
 # one intra-op thread: the suite runs several pytest workers on one machine,
 # and spinning thread pools in each of them starve one another
@@ -118,9 +119,10 @@ def test_wrapper_launches_or_raises_off_cpu():
             torch.empty((1, 128), device="meta")]
     with pytest.raises(ValueError, match="unsupported device"):
         j2_cuda.j2_radial_return(*meta, el, law, **j2_cuda.J2_FAST_CONTRACT)
-    # the four shipped laws have an in-kernel form; a user callable has none
-    assert all(j2_cuda.kernel_law(build(tmodels, name)[1]) is not None for name in LAWS)
-    assert j2_cuda.kernel_law(lambda p: SIG0 + 2e3 * p) is None
+    # the four shipped laws have a closed form in the kernel; a user callable
+    # runs there as a law program
+    assert all(j2_cuda.kernel_law(build(tmodels, name)[1])[0] < LAW_PROGRAM for name in LAWS)
+    assert j2_cuda.kernel_law(lambda p: SIG0 + 2e3 * p)[0] == LAW_PROGRAM
 
 
 CONTRACTS = {"pallas": j2_cuda.PALLAS_CONTRACT, "j2_fast": j2_cuda.J2_FAST_CONTRACT}
