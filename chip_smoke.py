@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs fifteen phases; any failure
+(sm_90a) into ``build/kernels/`` and runs eighteen phases; any failure
 exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -56,7 +56,7 @@ exits non-zero before the result line is printed:
    atomic ``index_add_`` twice, for comparison);
 10. the 3D Ogden benchmark (``demos.ogden_block``): the unit cube on P2
     tets, 10 mixed-precision steps to 20 % compression at N = 10 (6,000
-    tets) and the first 3 at N = 20 (48,000 tets, from a lifted first
+    tets) and the first 2 at N = 20 (48,000 tets, from a lifted first
     iterate), each timed warm after a first run of its first step:
     per-step relative residual (<= 1e-4), Newton and CG counts, warm seconds,
     the CG solves' share, K3/K4 launches;
@@ -74,7 +74,22 @@ exits non-zero before the result line is printed:
 15. the README's plane demo twin at its default N = 24 on the card (K1, K3
     and K4 launches, its VTK read back), at N = 6 on the card and the CPU
     (steps, forces, max p to 1e-8; the continuous projection of p to
-    1e-10), and the curved-cylinder twin at N = 6 on both.
+    1e-10), and the curved-cylinder twin at N = 6 on both;
+16. FeFp (``[fefp]``): the whole-batch update at bench.py's 131,072 points,
+    f64 and f32, both tangent modes and the flux-only update, card against
+    the CPU port on the same inputs, warm ms and torch.profiler's kernel
+    count per update; the finite-strain demo's bar on P2 tets at N = 8
+    (129,024 Gauss points, 42,483 dofs) through ``solve_adaptive`` (steps,
+    Newton and CG counts, time split, K3/K4 launches); the bar at N = 2 on
+    card and CPU (u and max p to 1e-8);
+17. crystal (``[crystal]``): Meric-Cailletaud at bench.py's 16,384 points, 3
+    chained updates at dt = 1e-2, f64 and f32, card against CPU (stress and
+    state to 1e-9, tangent to 1e-8 in f64), Newton counts (one host read
+    each), warm ms and kernel counts, and the flux-only update;
+18. the families' demo twins (``[families]``): finite strain, heat transfer,
+    thermomechanics, conic return mapping and the NN surrogate on the card
+    at the JAX demos' defaults, card against CPU at their smoke sizes, and
+    ``calibration.fit_parameters`` for 50 Adam steps on both.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -1274,11 +1289,11 @@ def phase_fused(nx, fast):
 # ---------------------------------------------------------- phases 10 to 13
 #: [ogden-tet]: the fine P2-tet block (6,000 tets, 27,783 dofs, 84,000 Gauss
 #: points) for 10 steps, then N = 20 (48,000 tets, 206,763 dofs, 672,000
-#: points) for its first 3; [ogden-hex]: the P1-hex block at N = 19;
+#: points) for its first 2; [ogden-hex]: the P1-hex block at N = 19;
 #: [composite]: the coarse composite; [ogden-cpu]: card against CPU (the
 #: tet block at N = 4, the smallest N whose plans the banded route builds,
 #: the composite at cfg (1, 1, 2) and the hex block at N = 3, 3 steps each)
-OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 3
+OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 2
 OGDEN_HEX_N = 19
 COMPOSITE_CFG = (2, 1, 3)
 OGDEN_CPU_N, OGDEN_CPU_CFG, OGDEN_CPU_HEX_N, OGDEN_CPU_STEPS = 4, (1, 1, 2), 3, 3
@@ -1381,7 +1396,7 @@ def describe(proto):
 def phase_ogden_tet():
     """[ogden-tet]: the reference's timed 3D Ogden protocol on its own P2
     tets through the mixed fused step, N = 10 for 10 steps, then N = 20 for
-    3. Returns the launches of the two warm runs, summed."""
+    2. Returns the launches of the two warm runs, summed."""
     total = dict.fromkeys(read_counts(), 0)
     for N, n_steps in ((OGDEN_TET_N, 10), (OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS)):
         t = time.perf_counter()
@@ -1646,6 +1661,347 @@ def phase_demo():
     return counts
 
 
+# ------------------------------------------------------------------ phases 16-18
+#: [fefp]: bench.py's FeFp batch (131,072 points, F = I + 2e-2 N(0, 1) from
+#: default_rng(1), identity state) and the bar of the finite-strain demo on
+#: P2 tets (N = 8: 9,216 tets, 129,024 Gauss points, 42,483 dofs)
+FEFP_N, FEFP_BAR_N, FEFP_BAR_CPU_N = 1 << 17, 8, 2
+#: card against CPU on the same inputs: f64 to 1e-10 of each field's largest
+#: magnitude; f32 to 1e-4 of it: f32 rounds at 6e-8, and the series log, the
+#: 16-step radial return and the 81-wide tangent (differences of O(E) terms
+#: through the log's jvp) each take the difference between two orders of
+#: rounding up by a few hundred at most
+FEFP_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+FEFP_BAR_TOL = 1e-8  # N = 2 bar, card against CPU: u and max p, relative
+#: the bar's load program, cut in depth: the first 2 of solve_adaptive's 10
+#: increments (to 1 % elongation; the whole program to 5 %, the demo twin's
+#: ``8 tet`` run, took 258.9 s on an H100 with 16 cut-backs and 338,044 CG
+#: iterations, PERF.md)
+FEFP_NSTEPS0, FEFP_BAR_STEPS = 10, 2
+#: [crystal]: bench.py's crystal batch (16,384 points, eps = 2e-3 N(0, 1)
+#: from default_rng(2)), 3 chained updates at dt = 1e-2
+CRYSTAL_N, CRYSTAL_DT, CRYSTAL_STEPS = 1 << 14, 1e-2, 3
+CRYSTAL_TOL, CRYSTAL_CT_TOL = 1e-9, 1e-8  # f64, of each field's scale
+#: f32 on the card against the f64 CPU run, of each field's scale: the f32
+#: Newton stops on steps of 3e-6; an f32 chain on a 256-point batch stays
+#: within 9.4e-6 of the f64 one (the tangent; the stress 4.2e-7), and the f32
+#: card run within 1.1e-5 of the f32 CPU run at 16,384 points (an H100)
+CRYSTAL_F32_TOL = 1e-4
+#: [families]: card against CPU at the smoke sizes
+FAMILY_TOL, CONIC_TOL, NN_TOL, FIT_TOL = 1e-8, 1e-10, 1e-6, 1e-8
+
+
+def kernel_events(fn):
+    """``(kernels, device ops)`` of one ``fn()`` under torch.profiler: the
+    kernels the card ran, and all its device events (kernels, copies and
+    sets)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset", "[memory]"))]
+    return len(kernels), len(dev)
+
+
+def field_errors(got, want, names):
+    """Each field's max |card - CPU| over its largest CPU magnitude."""
+    return {n: rel_err(g.cpu().to(w.dtype), w, max(float(w.abs().max()), 1e-300)) for n, g, w in zip(names, got, want)}
+
+
+def fefp_batch(dtype, device):
+    rng = np.random.default_rng(1)
+    F = np.tile(np.eye(3), (FEFP_N, 1, 1)) + 2e-2 * rng.standard_normal((FEFP_N, 3, 3))
+    Fv = F.reshape(FEFP_N, 9)[:, [0, 4, 8, 1, 3, 2, 6, 5, 7]]
+    state = {"be": np.tile([1.0, 1, 1, 0, 0, 0], (FEFP_N, 1)), "p": np.zeros(FEFP_N),
+             "F_prev": np.tile([1.0, 1, 1, 0, 0, 0, 0, 0, 0], (FEFP_N, 1))}
+    like = dict(dtype=dtype, device=device)
+    return torch.tensor(Fv, **like), {k: torch.tensor(v, **like) for k, v in state.items()}
+
+
+def phase_fefp_point():
+    """[fefp] (a): FeFp's whole-batch update (both tangent modes) and its
+    flux-only update at bench.py's batch, f64 and f32, card against the CPU
+    port on the same inputs; warm ms and the launches of each update."""
+    from dolfinx_materials_tpu_torch import models
+
+    beh = models.FeFpJ2Plasticity(models.LinearElasticIsotropic(70e3, 0.3), models.VoceHardening(350.0, 500.0, 1e3))
+    names = ("PK1", "Ct", "be", "p")
+    for dtype in (torch.float64, torch.float32):
+        Fc, sc = fefp_batch(dtype, DEVICE)
+        Fh, sh = fefp_batch(dtype, "cpu")
+        for mode in ("analytic", "jvp", "flux"):
+            if mode == "flux":
+                call = lambda F, s: beh.batched_flux(F, s, 0.0)  # noqa: E731
+                pick = lambda out: (out[0], out[1]["be"], out[1]["p"])  # noqa: E731
+                fields = ("PK1", "be", "p")
+            else:
+                beh.tangent_mode = mode
+                call = lambda F, s: beh.batched_update(F, s, 0.0)  # noqa: E731
+                pick = lambda out: (out[0], out[1], out[2]["be"], out[2]["p"])  # noqa: E731
+                fields = names
+            t = time.perf_counter()
+            want = pick(call(Fh, sh))
+            cpu_s = time.perf_counter() - t
+            got = pick(call(Fc, sc))
+            ms = cuda_ms(lambda: call(Fc, sc), reps=5, warmup=1)
+            kernels, ops = kernel_events(lambda: call(Fc, sc))
+            errs = field_errors(got, want, fields)
+            plastic = float((want[-1] > 0).double().mean())
+            ok = all(bool(torch.isfinite(g).all()) for g in got) and max(errs.values()) <= FEFP_TOL[dtype] \
+                and plastic > 0
+            log(f"[fefp] point {FEFP_N} {str(dtype).split('.')[1]} {mode}: warm {ms:.3f} ms/update on the card "
+                f"(CPU port {1e3 * cpu_s:.1f} ms), {kernels} kernels ({ops} device ops) per update by torch.profiler; "
+                f"plastic share {plastic:.3f}; card vs CPU {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
+                f"(tol {FEFP_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[fefp] {dtype} {mode}: card and CPU disagree or the batch is not plastic")
+
+
+def fefp_bar(N, device):
+    """The bar on P2 tets, its first iterate lifted to the uniform stretch of
+    the first of ``solve_adaptive``'s 10 increments."""
+    from dolfinx_materials_tpu_torch.demos import finite_strain_elastoplasticity as demo
+
+    proto = demo.build(N, "tetrahedron", device=device)
+    V = proto["V"]
+    u = np.zeros((V.num_nodes, 3))
+    u[:, 0] = demo.STRETCH / FEFP_NSTEPS0 * V.node_coords[:, 0]
+    proto["problem"].u.x = u.reshape(-1)
+    return proto, demo
+
+
+def phase_fefp_bar():
+    """[fefp] (b): the finite-strain demo's bar on P2 tets at N = 8 through
+    solve_adaptive from 10 initial increments, f64, the default Krylov
+    options, cut to its first ``FEFP_BAR_STEPS`` increments (to 1 %
+    elongation, into the plastic range) from a lifted first iterate; (c):
+    the same protocol at N = 2 on the card and the CPU. Returns the K3/K4
+    launches of the N = 8 run."""
+    from dolfinx_materials_tpu_torch.utils.timers import reset_timings, timing
+
+    t0 = time.perf_counter()
+    proto, demo = fefp_bar(FEFP_BAR_N, DEVICE)
+    qmap, V = proto["qmap"], proto["V"]
+    qmap.update(proto["problem"].u.x)  # the first update, outside the timed run
+    torch.cuda.synchronize()
+    log(f"[fefp] bar N={FEFP_BAR_N}: {qmap.domain.ne} P2 tets, {qmap.num_points} Gauss points, {V.num_dofs} dofs, "
+        f"banded plans {sorted(k for k, v in (qmap.domain._banded or {}).items() if v is not None)}; first "
+        f"{FEFP_BAR_STEPS} of {FEFP_NSTEPS0} increments, lifted first iterate; set-up {time.perf_counter() - t0:.2f}s")
+    reset_timings()
+    reset_counts()
+    t = time.perf_counter()
+    steps = demo.run(proto, nsteps0=FEFP_NSTEPS0, n_steps=FEFP_BAR_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    cut = proto["cutbacks"]
+    newton = sum(s["newton"] for s in steps + cut)
+    n_cg = sum(s["cg"] for s in steps + cut)
+    newton_s = timing("solver: Newton solve")[1]
+    split = {k: timing(f"solver: {k}")[1] for k in ("constitutive update", "jacobian assembly", "linear solve")}
+    split["residual and line search"] = newton_s - sum(split.values())
+    p = qmap.field_array("p").reshape(-1)
+    for s in steps:
+        log(f"[fefp]   load {s['load']:.6g}: newton={s['newton']} cg={s['cg']} wall_s={s['seconds']:.3f}")
+    target = demo.STRETCH * demo.L * FEFP_BAR_STEPS / FEFP_NSTEPS0
+    ok = (abs(steps[-1]["load"] - target) < 1e-12 and float(p.max()) > 0
+          and all(counts[k] > 0 for k in TAKES) and bool(np.isfinite(steps[-1]["u"]).all()))
+    log(f"[fefp] bar N={FEFP_BAR_N}: {len(steps)} steps accepted, {len(cut)} cut back, newton={newton} cg={n_cg}, "
+        f"warm wall {wall:.2f}s; max p {float(p.max()):.6e}; time split: "
+        + ", ".join(f"{k} {v:.2f}s ({100 * v / newton_s:.1f}%)" for k, v in split.items())
+        + f"; {1e3 * split['linear solve'] / max(n_cg, 1):.3f} ms per CG iteration; launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[fefp] bar: load program, plasticity or K3/K4 launches wrong")
+    del proto, qmap
+
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        proto, demo = fefp_bar(FEFP_BAR_CPU_N, dev)
+        t = time.perf_counter()
+        steps = demo.run(proto, nsteps0=FEFP_NSTEPS0, n_steps=FEFP_BAR_STEPS)
+        runs[dev] = (steps, float(proto["qmap"].field_array("p").max()), time.perf_counter() - t)
+    (sc, pc, tc), (sh, ph, th) = runs[DEVICE], runs["cpu"]
+    same = [s["load"] for s in sc] == [s["load"] for s in sh]
+    u_err = max(rel_err(torch.tensor(a["u"]), torch.tensor(b["u"]), np.abs(b["u"]).max()) for a, b in zip(sc, sh)) \
+        if same else float("inf")
+    p_err = abs(pc - ph) / ph
+    ok = same and u_err <= FEFP_BAR_TOL and p_err <= FEFP_BAR_TOL and ph > 0
+    log(f"[fefp] bar N={FEFP_BAR_CPU_N} card ({tc:.2f}s) vs CPU ({th:.2f}s): steps equal {same} ({len(sh)}), u rel "
+        f"err {u_err:.2e}, max p rel err {p_err:.2e} (tol {FEFP_BAR_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[fefp] bar N=2: card and CPU disagree")
+    return counts
+
+
+def crystal_batch(dtype, device):
+    rng = np.random.default_rng(2)
+    eps = [2e-3 * rng.standard_normal((CRYSTAL_N, 6))]
+    for _ in range(CRYSTAL_STEPS - 1):
+        eps.append(eps[-1] + 1e-3 * rng.standard_normal((CRYSTAL_N, 6)))
+    return [torch.tensor(e, dtype=dtype, device=device) for e in eps]
+
+
+def crystal_chain(beh, eps, device, flux=False):
+    """3 chained updates from the virgin state: per step ``(outputs, Newton
+    iterations, seconds)``."""
+    state = {k: torch.zeros((CRYSTAL_N,) + np.shape(v), dtype=eps[0].dtype, device=device)
+             for k, v in beh.init_state().items()}
+    out = []
+    for e in eps:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = beh.batched_flux(e, state, CRYSTAL_DT) if flux else beh.batched_update(e, state, CRYSTAL_DT)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out.append((res, beh.last_newton_iters, time.perf_counter() - t))
+        state = res[-1]
+    return out
+
+
+def phase_crystal():
+    """[crystal]: the Meric-Cailletaud whole-batch update at bench.py's batch,
+    3 chained steps at dt = 1e-2, f64 against the CPU port, f32 against that
+    f64 CPU run, and the flux-only update; warm ms, launches and host reads
+    per update."""
+    from dolfinx_materials_tpu_torch import models
+
+    beh = models.MericCailletaudCrystalPlasticity()
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    want = crystal_chain(beh, crystal_batch(torch.float64, "cpu"), "cpu")
+    log(f"[crystal] {CRYSTAL_N} points, CPU port f64 chain {time.perf_counter() - t:.1f}s")
+    names = ("sig", "Ct", "eps_p", "g", "p", "a")
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[1]
+        eps_c = crystal_batch(dtype, DEVICE)
+        got = crystal_chain(beh, eps_c, DEVICE)
+        for k, ((g, gi, gs), (w, wi, ws)) in enumerate(zip(got, want)):
+            errs = field_errors([g[0], g[1]] + [g[2][n] for n in names[2:]],
+                                [w[0], w[1]] + [w[2][n] for n in names[2:]], names)
+            tol = {n: (CRYSTAL_CT_TOL if n == "Ct" else CRYSTAL_TOL) if dtype == torch.float64 else CRYSTAL_F32_TOL
+                   for n in errs}
+            ok = all(errs[n] <= tol[n] for n in errs) and all(bool(torch.isfinite(x).all()) for x in g[:2])
+            log(f"[crystal] {tag} step {k + 1}: card {1e3 * gs:.2f} ms, {gi} Newton iterations = {gi} host reads "
+                f"(CPU port f64: {wi} iterations, {1e3 * ws:.1f} ms); against the CPU f64 run "
+                f"{', '.join(f'{n} {v:.2e}' for n, v in errs.items())} (tol {tol['sig']:g}) {'ok' if ok else 'FAIL'}")
+            if dtype == torch.float64 and gi != wi:
+                log(f"[crystal] f64 step {k + 1}: Newton counts differ, card {gi} vs CPU {wi}: the exit test "
+                    f"compares the batch's largest step with 1e-12, and rounding decides the last iteration")
+            if not ok:
+                raise AssertionError(f"[crystal] {tag} step {k + 1}: card and CPU disagree")
+        state = got[0][0][2]
+        kernels, ops = kernel_events(lambda: beh.batched_update(eps_c[1], state, CRYSTAL_DT))
+        its = beh.last_newton_iters
+        flux = crystal_chain(beh, eps_c, DEVICE, flux=True)
+        f_err = max(rel_err(f[0][0], g[0][0], float(g[0][0].abs().max())) for f, g in zip(flux, got))
+        ok = f_err == 0.0  # the same Newton, less the tangent
+        log(f"[crystal] {tag}: one update (step 2, {its} iterations) {kernels} kernels ({ops} device ops), "
+            f"{kernels / max(its, 1):.0f} per iteration; flux-only "
+            f"{', '.join(f'{1e3 * s:.2f}' for _, _, s in flux)} ms per step, stress against the full update "
+            f"{f_err:.1e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[crystal] flux-only update disagrees with the full update")
+    log(f"[crystal] {time.perf_counter() - t0:.1f}s")
+
+
+def phase_families():
+    """[families]: the five families' demo twins on the card at the JAX
+    demos' defaults (nn_surrogate: 1,000 steps), each held against the same
+    twin on the CPU at its smoke size; then fit_parameters for 50 Adam steps
+    on the Voce path of tests/test_calibration.py, card against CPU."""
+    import tempfile
+
+    from dolfinx_materials_tpu_torch import calibration, models
+    from dolfinx_materials_tpu_torch.demos import (conic_return_mapping, finite_strain_elastoplasticity,
+                                                   heat_transfer, nn_surrogate, thermomechanics)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def timed(fn, *a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        fs, s1 = timed(finite_strain_elastoplasticity.main, 4, device=DEVICE, out_dir=tmp)
+        st, s2 = timed(heat_transfer.stationary, 40, device=DEVICE)
+        ph, s3 = timed(heat_transfer.phase_change, 60, 15, device=DEVICE, out_dir=tmp)
+        tm, s4 = timed(thermomechanics.main, 16, device=DEVICE, out_dir=tmp)
+        cn, s5 = timed(conic_return_mapping.main, 16, device=DEVICE, out_dir=tmp)
+        nn, s6 = timed(nn_surrogate.main, 1000, device=DEVICE)
+        ok = (abs(fs["steps"][-1] - 0.15) < 1e-12 and fs["max_p"] > 0 and st["flux_err"] < 1e-3
+              and ph["fronts"][-1] > 0 and bool((np.diff(ph["fronts"]) >= 0).all()) and tm["stress"][:, 0].min() < 0
+              and nn["history"][-1] < 1e-2 * nn["history"][0])
+        log(f"[families] card at the demos' defaults: finite_strain N=4 {len(fs['steps'])} steps max p "
+            f"{fs['max_p']:.6f} ({s1:.2f}s); heat stationary nx=40 flux err {st['flux_err']:.3e} ({s2:.2f}s); phase "
+            f"change nx=60 15 steps front {ph['fronts'][-1]:.6f} ({s3:.2f}s); thermomechanics N=16 min sxx "
+            f"{tm['stress'][:, 0].min():.4f} ({s4:.2f}s); conic n_dirs=16 ({s5:.2f}s); nn_surrogate 1000 steps loss "
+            f"{nn['history'][0]:.3e} -> {nn['history'][-1]:.3e}, u err {nn['err']:.3e} ({s6:.2f}s) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[families] a demo twin on the card gave a wrong result")
+
+        small = {}
+        for dev in (DEVICE, "cpu"):
+            small[dev] = dict(st=heat_transfer.stationary(16, device=dev),
+                              ph=heat_transfer.phase_change(24, 4, device=dev, out_dir=tmp),
+                              tm=thermomechanics.main(6, device=dev, out_dir=tmp),
+                              cn=conic_return_mapping.main(6, device=dev, out_dir=tmp),
+                              nn=nn_surrogate.main(200, device=dev))
+    c, h = small[DEVICE], small["cpu"]
+    errs = {
+        "stationary flux err (card - cpu)": c["st"]["flux_err"] - h["st"]["flux_err"],
+        "phase change T": rel_err(torch.tensor(c["ph"]["T"]), torch.tensor(h["ph"]["T"]), np.abs(h["ph"]["T"]).max()),
+        "phase change fronts": float(np.abs(np.subtract(c["ph"]["fronts"], h["ph"]["fronts"])).max()),
+        "thermomechanics stress": rel_err(torch.tensor(c["tm"]["stress"]), torch.tensor(h["tm"]["stress"]),
+                                          np.abs(h["tm"]["stress"]).max()),
+        "conic": max(float(np.abs(c["cn"][k] - h["cn"][k]).max()) for k in h["cn"]) / 30.0,
+        "nn loss history": float(np.abs(np.array(c["nn"]["history"]) / np.array(h["nn"]["history"]) - 1).max()),
+    }
+    ok = (c["st"]["flux_err"] <= h["st"]["flux_err"] * (1 + FAMILY_TOL) and errs["phase change T"] <= FAMILY_TOL
+          and errs["phase change fronts"] == 0.0 and errs["thermomechanics stress"] <= FAMILY_TOL
+          and errs["conic"] <= CONIC_TOL and errs["nn loss history"] <= NN_TOL)
+    log(f"[families] card vs CPU at the smoke sizes: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol heat/thermo {FAMILY_TOL:g}, conic {CONIC_TOL:g} of fc, nn {NN_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[families] card and CPU twins disagree")
+
+    E_, nu_, true = 70e3, 0.3, dict(sig0=350.0, sigu=500.0, b=1e3)
+
+    def factory(th):
+        return models.vonMisesIsotropicHardening(models.LinearElasticIsotropic(E_, nu_), models.VoceHardening(
+            true["sig0"] * torch.exp(th["ls0"]), true["sigu"] * torch.exp(th["lsu"]), true["b"] * torch.exp(th["lb"])))
+
+    # the 10-step Voce path of tests/test_calibration.py's gradient test (its
+    # recovery test's 40-step path costs 4x: autograd through 40 updates a loss)
+    path = np.zeros((10, 6))
+    path[:, 0] = np.linspace(0, 4 * 350.0 / 70e3, 11)[1:]
+    zero = {k: torch.tensor(0.0, dtype=torch.float64) for k in ("ls0", "lsu", "lb")}
+    target = calibration.make_path_simulator(factory, zero)(zero, torch.tensor(path)).numpy()
+    theta0 = {"ls0": np.log(0.8), "lsu": np.log(1.25), "lb": np.log(0.6)}
+    fits = {}
+    for dev in (DEVICE, "cpu"):
+        t = time.perf_counter()
+        fits[dev] = calibration.fit_parameters(factory, theta0, path, target, steps=50, learning_rate=0.05,
+                                               device=dev) + (time.perf_counter() - t,)
+    (pc, hc, tc), (ph_, hh, th_) = fits[DEVICE], fits["cpu"]
+    h_err = float(np.abs(np.array(hc) / np.array(hh) - 1).max())
+    ok = h_err <= FIT_TOL and hc[-1] < 0.1 * hc[0]
+    names = {"ls0": "sig0", "lsu": "sigu", "lb": "b"}
+    fitted = {names[k]: round(true[names[k]] * float(torch.exp(v)), 4) for k, v in pc.items()}
+    log(f"[families] fit_parameters 50 Adam steps: card {tc:.2f}s, CPU {th_:.2f}s; loss {hc[0]:.3e} -> {hc[-1]:.3e}; "
+        f"history card vs CPU {h_err:.2e} (tol {FIT_TOL:g}); fitted {fitted} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[families] fit_parameters: card and CPU disagree or the loss did not fall")
+    log(f"[families] {time.perf_counter() - t0:.1f}s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1677,6 +2033,12 @@ def main():
     ogden = {"ogden_tet": phase_ogden_tet(), "ogden_hex": phase_ogden_hex(), "composite": phase_composite()}
     phase_ogden_cpu()
     demo_counts = phase_demo()
+    t_fefp = time.perf_counter()
+    phase_fefp_point()
+    fefp_counts = phase_fefp_bar()
+    log(f"[fefp] {time.perf_counter() - t_fefp:.1f}s")
+    phase_crystal()
+    phase_families()
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -1693,7 +2055,7 @@ def main():
 
         by_path = {"main": counts[name], "fused": fused_counts[name],
                    **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")},
-                   "demo": demo_counts[name]}
+                   "demo": demo_counts[name], "fefp": fefp_counts[name]}
         plate = times(keys)
         return {
             "name": name, "route": "cuda",

@@ -115,9 +115,6 @@ class Ogden(HyperelasticBehavior):
     #: series replaces the Cardano branch per point
     _spherical_switch = 0.15
 
-    #: nonsym 9-vector order: index s -> (i_s, j_s)
-    _NONSYM_IJ = ((0, 0), (1, 1), (2, 2), (0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
-
     def __init__(self, mu=(27778.0 * 28.8 / 2,), alpha=(28.8,), K=69444444.0, tangent_chunk=65536,
                  tangent_mode="c6"):
         self.mu = tuple(mu)
@@ -251,7 +248,7 @@ class Ogden(HyperelasticBehavior):
 
         zero = Fc.new_zeros(nc)
         cols = []
-        for i, j in self._NONSYM_IJ:
+        for i, j in fm.NONSYM_IJ:
             # dC = e_j (x) h + h (x) e_j with h = F[i, :], as a Mandel 6-vector
             h = F3[i]
             diag = [zero, zero, zero]

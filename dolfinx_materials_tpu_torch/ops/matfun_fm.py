@@ -47,6 +47,10 @@ def det(A):
     )
 
 
+#: nonsym 9-vector order: index s -> (row i_s, col j_s)
+NONSYM_IJ = ((0, 0), (1, 1), (2, 2), (0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1))
+
+
 def from_nonsym_rows(v):
     """(n, 9) nonsym vectors [11,22,33,12,21,13,31,23,32] -> (3,3,n)."""
     v = v.T

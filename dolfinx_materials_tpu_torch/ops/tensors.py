@@ -55,6 +55,12 @@ def norm(v):
     return torch.sqrt(ddot(v, v))
 
 
+def pos(x):
+    """Positive part as ``jnp.maximum(x, 0)``: slope 0.5 at 0, where a clamp
+    passes 1 (forward-mode tangents differentiate through it)."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
 def eq_vm(sig):
     """Von Mises equivalent stress sqrt(3/2 s:s) of a Mandel stress 6-vector."""
     s = dev(sig)

@@ -161,3 +161,15 @@ def from_reference_state(state_dict_of_numpy: dict, dtype=torch.float64, device=
     (Maxwell branches ``epsv (n, branches, 6)``, a GSM's ``alpha``) back its
     shape."""
     return {k: from_reference_array(v, dtype, device) for k, v in state_dict_of_numpy.items()}
+
+
+def from_reference_params(params) -> dict:
+    """An MLP parameter list of the JAX package (``[{"W": (in, out), "b":
+    (out,)}, ...]``, numpy) as the module state of this package's
+    ``models.nn.MLP`` (``state_dict`` names): W transposed into
+    ``nn.Linear``'s (out, in) weight, float64 on the CPU."""
+    state = {}
+    for k, layer in enumerate(params):
+        state[f"linears.{k}.weight"] = torch.as_tensor(np.asarray(layer["W"]).T.copy(), dtype=torch.float64)
+        state[f"linears.{k}.bias"] = torch.as_tensor(np.asarray(layer["b"]).copy(), dtype=torch.float64)
+    return state

@@ -512,3 +512,91 @@ def test_fused_step_graph_counts_replayed_launches(card):
     assert min(block) > 0 and replays == blocks
     launched = [calls - b + replays * b for calls, b in zip(out[True][2], block)]
     assert launched == [e + b for e, b in zip(out[False][2], block)]
+
+
+def fefp_inputs(n, seed=1, dtype=torch.float64):
+    """bench.py's FeFp batch: F = I + 2e-2 N(0, 1), committed identity state."""
+    rng = np.random.default_rng(seed)
+    Fv = np.tile([1.0, 1, 1, 0, 0, 0, 0, 0, 0], (n, 1)) + 2e-2 * rng.standard_normal((n, 9))
+    state = {"be": np.tile([1.0, 1, 1, 0, 0, 0], (n, 1)), "p": np.zeros(n),
+             "F_prev": np.tile([1.0, 1, 1, 0, 0, 0, 0, 0, 0], (n, 1))}
+    return torch.tensor(Fv, dtype=dtype), {k: torch.tensor(v, dtype=dtype) for k, v in state.items()}
+
+
+def to(tree, device):
+    if isinstance(tree, dict):
+        return {k: to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def assert_fields(got, want, tol):
+    for g, w in zip(got, want):
+        if isinstance(w, dict):
+            assert_fields([g[k] for k in w], [w[k] for k in w], tol)
+            continue
+        g = g.cpu()
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol * max(float(w.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("mode", ["analytic", "jvp"])
+@pytest.mark.parametrize("law", ["voce", "user"])
+def test_fefp_batched_update_card_vs_cpu(card, mode, law):
+    """FeFp's whole-batch update on the card against the same update on the
+    CPU (f64, 1e-10 of each field's scale), with a built-in law and a user
+    hardening callable (differentiated with torch.func on both)."""
+    ys = LAWS["voce"] if law == "voce" else user_law
+    beh = models.FeFpJ2Plasticity(models.LinearElasticIsotropic(70e3, 0.3), ys, tangent_mode=mode)
+    Fv, st = fefp_inputs(4096)
+    want = beh.batched_update(Fv, st, 0.0)
+    got = beh.batched_update(*to((Fv, st), card), 0.0)
+    torch.cuda.synchronize()
+    assert float(want[2]["p"].max()) > 0
+    assert_fields(got, want, 1e-10)
+    assert_fields(beh.batched_flux(*to((Fv, st), card), 0.0), beh.batched_flux(Fv, st, 0.0), 1e-10)
+
+
+def test_crystal_batched_update_card_vs_cpu(card):
+    """Three chained crystal updates (bench.py's batch shape, dt = 1e-2):
+    stress and state to 1e-9 of scale, tangent to 1e-8, the same Newton
+    counts on both."""
+    beh = models.MericCailletaudCrystalPlasticity()
+    rng = np.random.default_rng(2)
+    eps = torch.tensor(2e-3 * rng.standard_normal((2048, 6)))
+    st = {k: torch.zeros((2048,) + np.shape(v), dtype=torch.float64) for k, v in beh.init_state().items()}
+    stc = to(st, card)
+    for _ in range(3):
+        want = beh.batched_update(eps, st, 1e-2)
+        its = beh.last_newton_iters
+        got = beh.batched_update(eps.to(card), stc, 1e-2)
+        assert beh.last_newton_iters == its
+        assert_fields(got[:1] + got[2:], want[:1] + want[2:], 1e-9)
+        assert_fields(got[1:2], want[1:2], 1e-8)
+        st, stc = want[2], got[2]
+        eps = eps + 1e-3 * torch.tensor(rng.standard_normal((2048, 6)))
+    assert float(st["p"].max()) > 1e-4
+
+
+def test_root_backward_on_card(card):
+    """Reverse mode through a vmapped Voce path on CUDA tensors against the
+    same gradient on the CPU."""
+    from torch.func import grad
+
+    from dolfinx_materials_tpu_torch.calibration import make_path_simulator
+
+    def factory(th):
+        return models.vonMisesIsotropicHardening(models.LinearElasticIsotropic(70e3, 0.3),
+                                                 models.VoceHardening(350.0 * torch.exp(th["a"]), 500.0, 1e3))
+
+    path = np.zeros((10, 3, 6))
+    path[:, :, 0] = np.linspace(0, 0.02, 11)[1:, None] * np.array([1.0, 0.5, 1.2])
+    grads = []
+    for dev in ("cpu", card):
+        th = {"a": torch.tensor(0.0, dtype=torch.float64, device=dev)}
+        sim = make_path_simulator(factory, th)
+        g = grad(lambda t: torch.sum(sim(t, torch.tensor(path, device=dev)) ** 2))(th)
+        grads.append(float(g["a"]))
+    assert grads[0] != 0.0
+    assert abs(grads[1] / grads[0] - 1.0) <= 1e-10

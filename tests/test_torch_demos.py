@@ -1,4 +1,4 @@
-"""The four demo twins of dolfinx_materials_tpu_torch/demos against the JAX
+"""The demo twins of dolfinx_materials_tpu_torch/demos against the JAX
 package's demos (demos/*.py), on the CPU in float64 at the small sizes of
 tests/test_demos_smoke.py, each run in ``tmp_path``:
 
@@ -7,7 +7,17 @@ tests/test_demos_smoke.py, each run in ``tmp_path``:
 - curved_cylinder at N = 3: displacements of both variants to 1e-10 and the
   same Lamé errors;
 - hyperelasticity at N = 2: the same accepted steps, u to 1e-8;
-- custom_behavior at N = 2: the relaxation stresses to 1e-8.
+- custom_behavior at N = 2: the relaxation stresses to 1e-8;
+- finite_strain_elastoplasticity at N = 2: the same accepted steps, u to
+  1e-8, max p and mean PK1_xx as the JAX demo prints them;
+- heat_transfer (stationary at nx = 16, phase change at nx = 24 over 4
+  steps) and thermomechanics at N = 6: the printed summaries equal, T, u
+  to 1e-10 (tests/test_torch_thermal.py holds the fields in detail);
+- conic_return_mapping at n_dirs = 6: the CSV, and the final stresses of
+  the Rankine materials against the JAX demo's ``stress_paths`` to 1e-10 of
+  the yield scale;
+- nn_surrogate at 300 steps: the loss history to 1e-8 relative, the
+  displacement error to 1e-6 relative.
 """
 
 import importlib.util
@@ -23,10 +33,15 @@ import torch
 import jax  # noqa: E402, F401
 
 from dolfinx_materials_tpu_torch.demos import (  # noqa: E402
+    conic_return_mapping,
     curved_cylinder,
     custom_behavior,
+    finite_strain_elastoplasticity,
+    heat_transfer,
     hyperelasticity,
+    nn_surrogate,
     plane_elastoplasticity,
+    thermomechanics,
 )
 
 torch.set_num_threads(1)
@@ -108,3 +123,72 @@ def test_custom_behavior_matches_jax(tmp_path, monkeypatch):
     assert rel(sig, sig_j) <= 1e-8
     assert err <= 1e-10  # the closed form
     assert (tmp_path / "zener_relaxation.csv").exists()
+
+
+def test_finite_strain_elastoplasticity_matches_jax(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    mod = load("finite_strain_elastoplasticity")
+    problems = recording(mod, monkeypatch)
+    mod.main(N=2)
+    jax_out = capsys.readouterr().out.splitlines()[-1]
+    out = finite_strain_elastoplasticity.main(N=2, device="cpu", out_dir=str(tmp_path))
+    assert out["steps"][-1] == pytest.approx(0.05 * 3.0)
+    assert f"max p = {out['max_p']:.4f}; mean PK1_xx = {out['mean_pk1_xx']:.1f}" in jax_out
+    assert jax_out.startswith(f"{len(out['steps'])} steps")
+    assert rel(out["qmap"].material.data_manager.s0["PK1"], problems[-1].qmaps[0].material.data_manager.s0["PK1"]) \
+        <= 1e-8
+    assert out["max_p"] > 0.0
+
+
+def test_heat_transfer_and_thermomechanics_match_jax(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    heat = load("heat_transfer")
+    heat.stationary(nx=16)
+    heat.phase_change(nx=24, nsteps=4)
+    thermo = load("thermomechanics")
+    problems = recording(thermo, monkeypatch)
+    thermo.main(N=6)
+    jax_lines = capsys.readouterr().out.splitlines()
+    st = heat_transfer.stationary(nx=16, device="cpu")
+    ph = heat_transfer.phase_change(nx=24, nsteps=4, device="cpu", out_dir=str(tmp_path))
+    tm = thermomechanics.main(N=6, device="cpu", out_dir=str(tmp_path))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == jax_lines[0] and lines[1] == jax_lines[1]  # the two heat summaries
+    assert lines[-1] == jax_lines[-1].replace(", wrote thermomechanics.vtk", "")
+    assert st["flux_err"] < 2e-3 and ph["fronts"][-1] > 0
+    assert rel(tm["T"], problems[0].u.x) <= 1e-10 and rel(tm["u"], problems[1].u.x) <= 1e-10
+
+
+def test_conic_return_mapping_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    mod = load("conic_return_mapping")
+    finals = conic_return_mapping.main(n_dirs=6, device="cpu", out_dir=str(tmp_path))
+    got = np.loadtxt(tmp_path / "conic_stress_paths.csv", delimiter=",")
+    assert got.shape == (3 * 6 * 24, 6)
+    for m, (name, fin) in enumerate(finals.items()):
+        np.testing.assert_allclose(got[got[:, 0] == m][23::24, 3:], fin, rtol=0, atol=0)
+        if name == "vonmises_ps":  # its paths: tests/test_torch_conic_exact.py at n_dirs = 4
+            continue
+        mat = getattr(mod, {"rankine": "RankineExact", "l1rankine": "L1RankineExact",
+                            "vonmises_ps": "PlaneStressVonMisesExact"}[name])
+        args = (mod.E, mod.nu, mod.ft, mod.fc) if name != "vonmises_ps" else (mod.E, mod.nu, mod.sig0)
+        want = mod.stress_paths(mat(*args), n_dirs=6)[:, -1]
+        assert np.abs(fin - want).max() <= 1e-10 * mod.fc
+
+
+def test_nn_surrogate_matches_jax(monkeypatch, capsys):
+    mod = load("nn_surrogate")
+    problems = recording(mod, monkeypatch)
+    fits = []
+    fit = mod.NeuralBehavior.fit
+
+    def keep(self, *a, **k):
+        fits.append(fit(self, *a, **k))
+        return fits[-1]
+
+    monkeypatch.setattr(mod.NeuralBehavior, "fit", keep)
+    mod.main(steps=300)
+    out = nn_surrogate.main(steps=300, device="cpu")
+    assert np.abs(np.array(out["history"]) / np.array(fits[0]) - 1.0).max() <= 1e-8
+    assert rel(out["u"], problems[0].u.x) <= 1e-6
+    assert out["history"][-1] < out["history"][0]
