@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs eighteen phases; any failure
+(sm_90a) into ``build/kernels/`` and runs nineteen phases; any failure
 exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -56,8 +56,8 @@ exits non-zero before the result line is printed:
    atomic ``index_add_`` twice, for comparison);
 10. the 3D Ogden benchmark (``demos.ogden_block``): the unit cube on P2
     tets, 10 mixed-precision steps to 20 % compression at N = 10 (6,000
-    tets) and the first 2 at N = 20 (48,000 tets, from a lifted first
-    iterate), each timed warm after a first run of its first step:
+    tets), timed warm after a first run of its first step, and the first
+    step at N = 20 (48,000 tets, from a lifted first iterate), run once:
     per-step relative residual (<= 1e-4), Newton and CG counts, warm seconds,
     the CG solves' share, K3/K4 launches;
 11. the same block on P1 hexes at N = 19 in f32 (the 3D stencil);
@@ -82,14 +82,23 @@ exits non-zero before the result line is printed:
     (129,024 Gauss points, 42,483 dofs) through ``solve_adaptive`` (steps,
     Newton and CG counts, time split, K3/K4 launches); the bar at N = 2 on
     card and CPU (u and max p to 1e-8);
-17. crystal (``[crystal]``): Meric-Cailletaud at bench.py's 16,384 points, 3
+17. crystal (``[crystal]``): Meric-Cailletaud at bench.py's 16,384 points, 2
     chained updates at dt = 1e-2, f64 and f32, card against CPU (stress and
     state to 1e-9, tangent to 1e-8 in f64), Newton counts (one host read
     each), warm ms and kernel counts, and the flux-only update;
 18. the families' demo twins (``[families]``): finite strain, heat transfer,
     thermomechanics, conic return mapping and the NN surrogate on the card
     at the JAX demos' defaults, card against CPU at their smoke sizes, and
-    ``calibration.fit_parameters`` for 50 Adam steps on both.
+    ``calibration.fit_parameters`` for 25 Adam steps on both;
+19. multi-field problems (``[blocked]``): the multimaterial interface demo
+    twin (20x10 P1, host LU) card against CPU; the stiff thermo-mechanical
+    coupling of tests/test_blocked.py at N = 6 through the host LU solve,
+    the fused blocked step and ``solve_coupled`` (20 outer iterations), card
+    against CPU; the interface problem on a 256x128 P2 parent (294,912 Gauss
+    points, 264,196 dofs) through ``parallel.make_sharded_blocked_step``:
+    Newton and BiCGStab counts, |R| <= 1e-7 E, wall seconds, ms per BiCGStab
+    iteration, the device-busy share of its first Newton iteration, K1/K3/K4
+    launches; at 64x32 against the host LU solve on the card.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -527,7 +536,12 @@ def phase_take(nx, tet_n):
             err = {k: rel_err(o, ref, scale) for k, o in outs.items()}
             S = take_matrix(plan, dtype)
             e_lib = rel_err(S @ table, ref, scale)
-            ok = bitwise and all(e <= tol[dtype] for e in (*err.values(), e_lib))
+            # table[idx] over the flat entry list: the take itself where each
+            # output has one entry (cell, fm), the gather half of a sum (asm)
+            idx = plan.csr_idx.long()
+            gather = idx.numel() == plan.n_out
+            e_sel = rel_err(table.index_select(0, idx), ref, scale) if gather else 0.0
+            ok = bitwise and all(e <= tol[dtype] for e in (*err.values(), e_lib, e_sel))
             index_windowed, staged = window_take_bytes(plan, table)
             row = dict(
                 err={k: float((o - ref).abs().max()) for k, o in outs.items()},
@@ -536,6 +550,9 @@ def phase_take(nx, tet_n):
                 host={k: host_us(lambda: fn(table, plan)) for k, fn in kernels.items()},
                 t_p=cuda_ms(lambda: bg.banded_take_reference(table, plan)),
                 t_l=cuda_ms(lambda: S @ table),
+                t_i=cuda_ms(lambda: table.index_select(0, idx)),
+                device_i=graph_ms(lambda: table.index_select(0, idx)),
+                gather=gather,
                 bound=bound_ms(take_bytes(plan, table), take_ops(plan), dtype)[0],
             )
             log(
@@ -548,6 +565,8 @@ def phase_take(nx, tet_n):
                 + " ".join(f"{k}: call_ms={row['call'][k]:.4f} device_ms={row['device'][k]:.4f} "
                            f"host_us={row['host'][k]:.1f} |" for k in kernels)
                 + f" bound_ms={row['bound']:.4f} plain_ms={row['t_p']:.4f} csr_spmv_ms={row['t_l']:.4f} "
+                + f"index_select_ms={row['t_i']:.4f} (device_ms {row['device_i']:.4f})"
+                + f"{'' if gather else ' (gather only, no sum)'} "
                 f"{'ok' if ok else 'FAIL'}"
             )
             if not ok:
@@ -1289,11 +1308,11 @@ def phase_fused(nx, fast):
 # ---------------------------------------------------------- phases 10 to 13
 #: [ogden-tet]: the fine P2-tet block (6,000 tets, 27,783 dofs, 84,000 Gauss
 #: points) for 10 steps, then N = 20 (48,000 tets, 206,763 dofs, 672,000
-#: points) for its first 2; [ogden-hex]: the P1-hex block at N = 19;
+#: points) for its first step; [ogden-hex]: the P1-hex block at N = 19;
 #: [composite]: the coarse composite; [ogden-cpu]: card against CPU (the
 #: tet block at N = 4, the smallest N whose plans the banded route builds,
 #: the composite at cfg (1, 1, 2) and the hex block at N = 3, 3 steps each)
-OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 2
+OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 1
 OGDEN_HEX_N = 19
 COMPOSITE_CFG = (2, 1, 3)
 OGDEN_CPU_N, OGDEN_CPU_CFG, OGDEN_CPU_HEX_N, OGDEN_CPU_STEPS = 4, (1, 1, 2), 3, 3
@@ -1312,11 +1331,12 @@ MIXED_CPU_TOL, HEX_CPU_TOL = 1e-6, 1e-5
 TAKES = ("banded_take_ell", "banded_take_csr")
 
 
-def run_ogden(tag, proto, run_steps, bar=MIXED_BAR):
+def run_ogden(tag, proto, run_steps, bar=MIXED_BAR, once=False):
     """A protocol's first load step (the first build: kernels, CUDA-graph
     captures), then all its steps again from u = 0 (``run_steps(proto,
-    n)``, n None for all), the warm run; the counts are set to 0 before each
-    run and the warm run's launches derived as [fused] derives them. Prints
+    n)``, n None for all), the warm run; with ``once`` only the second run
+    (its first build included). The counts are set to 0 before each run and
+    the last run's launches derived as [fused] derives them. Prints
     per-step relative |R|, Newton and CG counts, the wall seconds of each
     run and the launches, and holds every step to ``bar``, the CG to f32
     and, on a tet mesh, K3 and K4 to f32 launches. Returns ``(u, stats,
@@ -1332,7 +1352,7 @@ def run_ogden(tag, proto, run_steps, bar=MIXED_BAR):
         cg_wall[0] += time.perf_counter() - t
         return out
 
-    for n in (1, None):
+    for n in (None,) if once else (1, None):
         reset_counts()
         before = graph_snapshot(cg)
         cg_wall[0] = 0.0
@@ -1355,9 +1375,10 @@ def run_ogden(tag, proto, run_steps, bar=MIXED_BAR):
     cg_dtype = proto["step"].info["cg_dtype"]
     ok = all(np.isfinite(r) and r <= bar for r in rel) and bool(torch.isfinite(u).all()) and (
         cg_dtype == torch.float32) and (not proto["tet"] or all(launches[k] > 0 and f32[k] > 0 for k in TAKES))
-    log(f"[{tag}] {len(stats)} steps: wall_s {seconds[1]:.3f} warm (the first step alone, first build: "
-        f"{seconds[0]:.3f}); "
-        f"newton={sum(st['newton'] for st in stats)} cg={n_cg}; CG solves {cg_wall[0]:.3f}s of the warm run "
+    log(f"[{tag}] {len(stats)} steps: wall_s {seconds[-1]:.3f} "
+        + ("(one run, its first build included); " if once else
+           f"warm (the first step alone, first build: {seconds[0]:.3f}); ")
+        + f"newton={sum(st['newton'] for st in stats)} cg={n_cg}; CG solves {cg_wall[0]:.3f}s of the timed run "
         f"({100 * cg_wall[0] / seconds[-1]:.1f}%, {1e3 * cg_wall[0] / max(n_cg, 1):.4f} ms per CG iteration, a "
         f"synchronise around each solve); CG operands {cg_dtype}; launches of the last run (f32 {f32}) "
         f"{launches} = wrapper calls - captured + replays x per replay: {factors}; max rel |R| {max(rel):.3e} "
@@ -1396,7 +1417,7 @@ def describe(proto):
 def phase_ogden_tet():
     """[ogden-tet]: the reference's timed 3D Ogden protocol on its own P2
     tets through the mixed fused step, N = 10 for 10 steps, then N = 20 for
-    2. Returns the launches of the two warm runs, summed."""
+    its first. Returns the launches of the two warm runs, summed."""
     total = dict.fromkeys(read_counts(), 0)
     for N, n_steps in ((OGDEN_TET_N, 10), (OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS)):
         t = time.perf_counter()
@@ -1408,7 +1429,8 @@ def phase_ogden_tet():
             f"{', first step from the uniform compression' if lift else ''}: {describe(proto)}; "
             f"set-up {time.perf_counter() - t:.2f}s")
         torch.cuda.reset_peak_memory_stats()
-        _, _, _, launches = run_ogden("ogden-tet", proto, run)
+        # N = 20 runs its one step once, its first build included
+        _, _, _, launches = run_ogden("ogden-tet", proto, run, once=N == OGDEN_TET_BIG_N)
         log(f"[ogden-tet] N={N}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         total = {k: total[k] + launches[k] for k in total}
         del proto, run
@@ -1447,12 +1469,29 @@ def ogden_hex(N, device=DEVICE):
     return proto, ogden_block.run_steps
 
 
+class StepRecorder:
+    """A protocol's step that keeps a host copy of every step's u (its
+    attributes, ``info`` and ``cg``, are the step's own)."""
+
+    def __init__(self, step):
+        self.step, self.u = step, []
+
+    def __call__(self, *a, **k):
+        out = self.step(*a, **k)
+        self.u.append(out[0].detach().cpu().clone())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
 def phase_ogden_cpu():
     """[ogden-cpu]: the tet block, the composite and the hex block, 3 steps
-    each, on the card and on the CPU: u to ``MIXED_CPU_TOL`` on the mixed
-    protocols and to ``HEX_CPU_TOL`` on the f32 one, every step to its bar
-    (the f32 CGs round differently on the two, so counts are printed, not
-    compared)."""
+    each, on the card and on the CPU: u after the last step to
+    ``MIXED_CPU_TOL`` on the mixed protocols and to ``HEX_CPU_TOL`` on the
+    f32 one, every step to its bar (the f32 CGs round differently on the
+    two, so counts are printed, not compared). The card-against-CPU error
+    of u after every step is printed."""
     for name, make, tol, bar in (
             ("tet", lambda dev: ogden_tet(OGDEN_CPU_N, OGDEN_CPU_STEPS, dev), MIXED_CPU_TOL, MIXED_BAR),
             ("composite", lambda dev: composite(OGDEN_CPU_CFG, OGDEN_CPU_STEPS, dev), MIXED_CPU_TOL, MIXED_BAR),
@@ -1460,19 +1499,22 @@ def phase_ogden_cpu():
         out = {}
         for dev in (DEVICE, "cpu"):
             proto, run = make(dev)
+            proto["step"] = rec = StepRecorder(proto["step"])
             t = time.perf_counter()
             u, stats = run(proto, OGDEN_CPU_STEPS)
             if dev == DEVICE:
                 torch.cuda.synchronize()
-            out[dev] = (u.cpu(), stats, time.perf_counter() - t, describe(proto))
-        (u_c, st_c, t_c, d), (u_h, st_h, t_h, _) = out[DEVICE], out["cpu"]
+            out[dev] = (u.cpu(), stats, time.perf_counter() - t, describe(proto), rec.u)
+        (u_c, st_c, t_c, d, us_c), (u_h, st_h, t_h, _, us_h) = out[DEVICE], out["cpu"]
         err = rel_err(u_c, u_h, u_h.abs().max())
+        per_step = [rel_err(a, b, b.abs().max()) for a, b in zip(us_c, us_h)]
         rel = [s["res"] / s["res0"] for s in st_c + st_h]
         ok = err <= tol and max(rel) <= bar and u_c.dtype == u_h.dtype
         log(f"[ogden-cpu] {name} ({d}), {OGDEN_CPU_STEPS} steps, u {u_c.dtype}: card {t_c:.2f}s newton="
             f"{[s['newton'] for s in st_c]} cg={[s['cg'] for s in st_c]} | cpu {t_h:.2f}s newton="
             f"{[s['newton'] for s in st_h]} cg={[s['cg'] for s in st_h]} | u rel err {err:.2e} (tol "
-            f"{tol:g}), max rel |R| {max(rel):.2e} (bar {bar:g}) {'ok' if ok else 'FAIL'}")
+            f"{tol:g}; after each step {' '.join(f'{e:.2e}' for e in per_step)}), max rel |R| {max(rel):.2e} "
+            f"(bar {bar:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ogden-cpu: {name} card and CPU disagree")
 
@@ -1679,8 +1721,8 @@ FEFP_BAR_TOL = 1e-8  # N = 2 bar, card against CPU: u and max p, relative
 #: iterations, PERF.md)
 FEFP_NSTEPS0, FEFP_BAR_STEPS = 10, 2
 #: [crystal]: bench.py's crystal batch (16,384 points, eps = 2e-3 N(0, 1)
-#: from default_rng(2)), 3 chained updates at dt = 1e-2
-CRYSTAL_N, CRYSTAL_DT, CRYSTAL_STEPS = 1 << 14, 1e-2, 3
+#: from default_rng(2)), 2 chained updates at dt = 1e-2
+CRYSTAL_N, CRYSTAL_DT, CRYSTAL_STEPS = 1 << 14, 1e-2, 2
 CRYSTAL_TOL, CRYSTAL_CT_TOL = 1e-9, 1e-8  # f64, of each field's scale
 #: f32 on the card against the f64 CPU run, of each field's scale: the f32
 #: Newton stops on steps of 3e-6; an f32 chain on a 256-point batch stays
@@ -1689,6 +1731,7 @@ CRYSTAL_TOL, CRYSTAL_CT_TOL = 1e-9, 1e-8  # f64, of each field's scale
 CRYSTAL_F32_TOL = 1e-4
 #: [families]: card against CPU at the smoke sizes
 FAMILY_TOL, CONIC_TOL, NN_TOL, FIT_TOL = 1e-8, 1e-10, 1e-6, 1e-8
+FIT_STEPS = 25  # Adam steps of fit_parameters, on card and CPU
 
 
 def kernel_events(fn):
@@ -1847,8 +1890,8 @@ def crystal_batch(dtype, device):
 
 
 def crystal_chain(beh, eps, device, flux=False):
-    """3 chained updates from the virgin state: per step ``(outputs, Newton
-    iterations, seconds)``."""
+    """CRYSTAL_STEPS chained updates from the virgin state: per step
+    ``(outputs, Newton iterations, seconds)``."""
     state = {k: torch.zeros((CRYSTAL_N,) + np.shape(v), dtype=eps[0].dtype, device=device)
              for k, v in beh.init_state().items()}
     out = []
@@ -1866,7 +1909,7 @@ def crystal_chain(beh, eps, device, flux=False):
 
 def phase_crystal():
     """[crystal]: the Meric-Cailletaud whole-batch update at bench.py's batch,
-    3 chained steps at dt = 1e-2, f64 against the CPU port, f32 against that
+    2 chained steps at dt = 1e-2, f64 against the CPU port, f32 against that
     f64 CPU run, and the flux-only update; warm ms, launches and host reads
     per update."""
     from dolfinx_materials_tpu_torch import models
@@ -1913,7 +1956,7 @@ def phase_crystal():
 def phase_families():
     """[families]: the five families' demo twins on the card at the JAX
     demos' defaults (nn_surrogate: 1,000 steps), each held against the same
-    twin on the CPU at its smoke size; then fit_parameters for 50 Adam steps
+    twin on the CPU at its smoke size; then fit_parameters for 25 Adam steps
     on the Voce path of tests/test_calibration.py, card against CPU."""
     import tempfile
 
@@ -1988,18 +2031,307 @@ def phase_families():
     fits = {}
     for dev in (DEVICE, "cpu"):
         t = time.perf_counter()
-        fits[dev] = calibration.fit_parameters(factory, theta0, path, target, steps=50, learning_rate=0.05,
+        fits[dev] = calibration.fit_parameters(factory, theta0, path, target, steps=FIT_STEPS, learning_rate=0.05,
                                                device=dev) + (time.perf_counter() - t,)
     (pc, hc, tc), (ph_, hh, th_) = fits[DEVICE], fits["cpu"]
     h_err = float(np.abs(np.array(hc) / np.array(hh) - 1).max())
     ok = h_err <= FIT_TOL and hc[-1] < 0.1 * hc[0]
     names = {"ls0": "sig0", "lsu": "sigu", "lb": "b"}
     fitted = {names[k]: round(true[names[k]] * float(torch.exp(v)), 4) for k, v in pc.items()}
-    log(f"[families] fit_parameters 50 Adam steps: card {tc:.2f}s, CPU {th_:.2f}s; loss {hc[0]:.3e} -> {hc[-1]:.3e}; "
+    log(f"[families] fit_parameters {FIT_STEPS} Adam steps: card {tc:.2f}s, CPU {th_:.2f}s; loss {hc[0]:.3e} -> {hc[-1]:.3e}; "
         f"history card vs CPU {h_err:.2e} (tol {FIT_TOL:g}); fitted {fitted} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("[families] fit_parameters: card and CPU disagree or the loss did not fall")
     log(f"[families] {time.perf_counter() - t0:.1f}s")
+
+
+# ------------------------------------------------------------------ phase 19
+#: [blocked] (c): the interface problem at the main plate's width (a 256 x 128
+#: P2 parent, degree-4 quadrature: 32,768 cells, 294,912 Gauss points), and
+#: at 64 x 32 its checks against the host LU solve on the card and against
+#: the same step on the CPU. The demo's
+#: traction is replaced by a pull of the inclusion's right edge (the fused
+#: step, as the JAX one, takes its load through the Dirichlet values), from
+#: the uniform stretch; the JAX step's defaults otherwise (two-level, 8
+#: coordinate boxes a dimension a field, cg_rtol 1e-8), with a BiCGStab budget
+#: the fine grid needs
+BLOCKED_NX, BLOCKED_CHECK_NX, BLOCKED_PULL = 256, 64, 1.5e-2
+BLOCKED_OPTS = dict(n_newton=12, n_cg=8000)
+BLOCKED_WINDOW_CG = 200  # the BiCGStab iterations of the profiled window
+BLOCKED_WARM_CG = 50  # the warm-up's BiCGStab budget (one Newton iteration)
+BLOCKED_TAKE_TOL = 1e-13  # a field's full-width plans against the plain take, f64 ([take]'s)
+#: (b): the stiff thermo-mechanical coupling of tests/test_blocked.py at N = 6,
+#: with solve_coupled cut to 20 outer iterations (it needs 217 at its
+#: default rtol on the CPU: the point of the monolithic solve)
+BLOCKED_THERMO_N, BLOCKED_GS_OUTER = 6, 20
+BLOCKED_TOL = 1e-8  # card against CPU, of each field's scale
+BLOCKED_CHECK_TOL = 1e-5  # the fused step against the host LU solve (test_blocked_step_interface)
+#: (c) at 64 x 32: the card's BiCGStab count against the CPU's (their dots and
+#: batched products round in another order, and the stopping test at 1e-8
+#: of |b| meets that rounding)
+BLOCKED_CG_SPREAD = 0.05
+BLOCKED_STEP_TOL = 1e-6  # (b): the fused step against the host LU solve (test_blocked_step_thermomechanical)
+
+
+def blocked_step(blocked, z0, **opts):
+    """One fused blocked step from ``z0`` (BC values put in):
+    ``(z, |R|, states, step)``."""
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_blocked_step
+
+    dev = blocked.device
+    step, pad = make_sharded_blocked_step(blocked, device_mesh(1, devices=[dev]), **opts)
+    mask, vals = blocked._masks()
+    z0 = torch.where(mask, vals, torch.as_tensor(z0, dtype=vals.dtype, device=dev))
+    states = pad([q.material.data_manager.s0.internal for p in blocked.problems for q in p.qmaps])
+    z, states, rn = step(z0, states, mask, vals, 0.0)
+    return z, float(rn), states, step
+
+
+def blocked_thermo_three_ways(device):
+    """(b) on one device: the host LU solve, the fused step and
+    solve_coupled. Returns their results and Newton / outer counts."""
+    from dolfinx_materials_tpu_torch import BlockedNonlinearProblem, solve_coupled
+    from dolfinx_materials_tpu_torch.demos.blocked_thermomechanics import build
+
+    heat, mech, qT, qu, coups = build(BLOCKED_THERMO_N, device)
+    lu = BlockedNonlinearProblem([heat, mech], coups, options={"ksp_type": "lu"})
+    ok, its = lu.solve()
+    if not ok:
+        raise AssertionError(f"[blocked] the stiff coupling's LU solve did not converge on {device}")
+    z_lu = np.concatenate([heat.u.x, mech.u.x])
+
+    heat, mech, qT, qu, coups = build(BLOCKED_THERMO_N, device)
+    z0 = np.concatenate([heat.u.x, mech.u.x])
+    z, rn, _, step = blocked_step(BlockedNonlinearProblem([heat, mech], coups), z0, n_newton=16, n_cg=400)
+
+    heat, mech, qT, qu, coups = build(BLOCKED_THERMO_N, device)
+    ev = qu.domain.make_eval(coups[1][5])
+
+    def push_T():
+        qu.material.update_external_state_variable(
+            "Temperature", qT._eval_fns["Temperature"](torch.as_tensor(heat.u.x, device=device)))
+
+    def push_ev():
+        qT.material.update_external_state_variable("VolStrain", ev(torch.as_tensor(mech.u.x, device=device)))
+
+    ok_gs, n_gs = solve_coupled([heat, mech], [push_ev, push_T], max_outer=BLOCKED_GS_OUTER)
+    return dict(lu=z_lu, lu_its=its, step=z.cpu().numpy(), step_rn=rn, step_info=dict(step.info),
+                gs=np.concatenate([heat.u.x, mech.u.x]), gs_ok=ok_gs, gs_outer=n_gs)
+
+
+def phase_blocked():
+    """[blocked]: (a) the multimaterial demo twin at the JAX demo's size on
+    the card and the CPU; (b) the stiff thermo-mechanical coupling three ways
+    (host LU, fused step, solve_coupled) on both; (c) the interface problem at
+    the main plate's width through the fused blocked step, its launches,
+    times and device-busy share, and at 64 x 32 against the host LU solve
+    on the card and against the CPU. Returns the K1/K3/K4 launches of (a)'s card solve and
+    (c)'s timed step."""
+    from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
+    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+    from dolfinx_materials_tpu_torch.parallel import blocked as blocked_mod
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_blocked_step
+
+    t0 = time.perf_counter()
+    # (a) the demo twin, 20 x 10 P1, host LU
+    t = time.perf_counter()
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        b = mmi.build(device=dev)
+        reset_counts()
+        t = time.perf_counter()
+        ok, its = b["blocked"].solve()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        (p_m, p_i), (mat_m, mat_i) = b["problems"], b["materials"]
+        res[dev] = dict(ok=ok, its=its, s=time.perf_counter() - t, counts=counts,
+                        u=np.concatenate([p_m.u.x, p_i.u.x]),
+                        p=[float(m.data_manager.s0["p"].max()) for m in (mat_m, mat_i)],
+                        jump=b["interface"].jump(p_m.u.x, p_i.u.x).numpy())
+    c, h = res[DEVICE], res["cpu"]
+    demo_counts = c["counts"]
+    errs = dict(u=rel_err(torch.tensor(c["u"]), torch.tensor(h["u"]), np.abs(h["u"]).max()),
+                p_max_m=abs(c["p"][0] - h["p"][0]) / h["p"][0], p_max_i=abs(c["p"][1] - h["p"][1]) / h["p"][1],
+                jump=rel_err(torch.tensor(c["jump"]), torch.tensor(h["jump"]), np.abs(h["jump"]).max()))
+    ok = (c["ok"] and h["ok"] and c["its"] == h["its"] and all(e <= BLOCKED_TOL for e in errs.values())
+          and h["p"][0] > 1e-4 and demo_counts["j2_radial_return"] > 0 and demo_counts["banded_take_csr"] > 0)
+    log(f"[blocked] (a) demo twin 20x10 P1: card newton={c['its']} ({c['s']:.2f}s) | cpu newton={h['its']} "
+        f"({h['s']:.2f}s); p max matrix {h['p'][0]:.6f} inclusion {h['p'][1]:.6f}, jump_x mean "
+        f"{h['jump'][..., 0].mean():.4e}; card vs CPU " + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {BLOCKED_TOL:g}); launches {demo_counts}; {time.perf_counter() - t:.1f}s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[blocked] (a) the demo twin: card and CPU disagree, or K1/K3 did not launch")
+
+    # (b) the stiff coupling three ways
+    t = time.perf_counter()
+    th = {dev: blocked_thermo_three_ways(dev) for dev in (DEVICE, "cpu")}
+    c, h = th[DEVICE], th["cpu"]
+    scale = np.abs(h["lu"]).max()
+    errs = {k: float(np.abs(c[k] - h[k]).max() / scale) for k in ("lu", "step", "gs")}
+    e_step_lu = float(np.abs(c["step"] - c["lu"]).max() / scale)
+    ok = (all(e <= BLOCKED_TOL for e in errs.values()) and c["lu_its"] == h["lu_its"]
+          and c["step_info"]["newton"] == h["step_info"]["newton"] and c["gs_outer"] == h["gs_outer"]
+          and c["gs_ok"] == h["gs_ok"] and e_step_lu <= BLOCKED_STEP_TOL and c["step_rn"] <= 1e-7 * E)
+    log(f"[blocked] (b) stiff thermo-mechanics N={BLOCKED_THERMO_N}: host LU newton={c['lu_its']} (cpu "
+        f"{h['lu_its']}); fused step newton={c['step_info']['newton']} bicgstab={c['step_info']['bicgstab']} (cpu "
+        f"{h['step_info']['newton']}/{h['step_info']['bicgstab']}) |R|={c['step_rn']:.3e}, against host LU "
+        f"{e_step_lu:.2e} (tol {BLOCKED_STEP_TOL:g}); solve_coupled converged={c['gs_ok']} after {c['gs_outer']} "
+        f"outer iterations (cpu {h['gs_ok']}/{h['gs_outer']}, max {BLOCKED_GS_OUTER}); card vs CPU z: "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {BLOCKED_TOL:g}); {time.perf_counter() - t:.1f}s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[blocked] (b) the stiff coupling: card and CPU disagree, or the step misses the LU solve")
+
+    # (c) at the main plate's width
+    t = time.perf_counter()
+    b = mmi.build(BLOCKED_NX, BLOCKED_NX // 2, 2, device=DEVICE, pull=BLOCKED_PULL)
+    blocked = b["blocked"]
+    npts = sum(q.num_points for q in b["qmaps"])
+    chosen = [{k: bg_name(p) for k, p in q.domain._banded.items()} if q.domain.banded_active else None
+              for q in b["qmaps"]]
+    mask, vals = blocked._masks()
+    z0 = torch.where(mask, vals, torch.as_tensor(b["start"], device=DEVICE))
+    step, pad = make_sharded_blocked_step(blocked, device_mesh(1, devices=[DEVICE]), **BLOCKED_OPTS)
+    states0 = pad([q.material.data_manager.s0.internal for q in b["qmaps"]])
+    log(f"[blocked] (c) {BLOCKED_NX}x{BLOCKED_NX // 2} P2 parent: {len(b['qmaps'][0].cells)} + "
+        f"{len(b['qmaps'][1].cells)} cells, {npts} Gauss points, {blocked.ndofs} dofs "
+        f"({b['interface'].num_facets} interface facets), f64, {BLOCKED_OPTS}, pull {BLOCKED_PULL:g}; takes "
+        f"{chosen}; set-up {time.perf_counter() - t:.2f}s")
+    if not all(chosen):
+        raise AssertionError("[blocked] (c) a field did not get its banded plans")
+    bicg, solves = [0.0], []
+
+    def timed_bicgstab(*a, **k):  # the BiCGStab solves' wall time
+        if not solves:
+            solves.append(a[:3])  # (Av, b, M) of the first solve
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        out = pbicgstab(*a, **k)
+        torch.cuda.synchronize()
+        bicg[0] += time.perf_counter() - tb
+        return out
+
+    pbicgstab = blocked_mod._pbicgstab
+    # warm-up (first calls, the allocator's growth): one Newton iteration cut
+    # to BLOCKED_WARM_CG BiCGStab iterations, not counted
+    tw = time.perf_counter()
+    warm, _ = make_sharded_blocked_step(blocked, device_mesh(1, devices=[DEVICE]),
+                                        **dict(BLOCKED_OPTS, n_newton=1, n_cg=BLOCKED_WARM_CG))
+    warm(z0, states0, mask, vals, 0.0)
+    torch.cuda.synchronize()
+    log(f"[blocked] (c) warm-up ({warm.info['bicgstab']} BiCGStab): {time.perf_counter() - tw:.2f}s")
+    del warm
+    reset_counts()
+    blocked_mod._pbicgstab = timed_bicgstab
+    try:
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        z, states, rn = step(z0, states0, mask, vals, 0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+    finally:
+        blocked_mod._pbicgstab = pbicgstab
+    full_counts = read_counts()
+    info = step.info
+    log(f"[blocked] (c) timed: newton={info['newton']} bicgstab={info['bicgstab']} "
+        f"({info['bicgstab_per_newton']}) |R|={float(rn):.4e} (entering {info['residuals'][0]:.4e}) "
+        f"wall_s={wall:.3f}, BiCGStab {bicg[0]:.3f} s = {1e3 * bicg[0] / max(info['bicgstab'], 1):.4f} ms "
+        f"an iteration; launches {full_counts}")
+    p = [float(st["p"].max()) for st in states]
+    # each field's full-width plans against the plain take on a seeded f64
+    # table (these launches are not counted: the counts were read above)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    plan_errs = {}
+    for fi, q in enumerate(b["qmaps"]):
+        for key, plan in q.domain._banded.items():
+            if plan is None:
+                continue
+            table = torch.randn(plan.n_src, generator=g, dtype=torch.float64, device=DEVICE)
+            ref = bg.banded_take_reference(table, plan)
+            for kname, fn in (("ell", bg.banded_take_ell), ("csr", bg.banded_take_csr)):
+                plan_errs[f"{fi}.{key}.{kname}"] = rel_err(fn(table, plan), ref, ref.abs().max())
+    ok_plans = bool(plan_errs) and all(e <= BLOCKED_TAKE_TOL for e in plan_errs.values())
+    log(f"[blocked] (c) each field's plans (field.plan.kernel) against the plain take, f64: "
+        + " ".join(f"{k} {v:.1e}" for k, v in plan_errs.items()) + f" (tol {BLOCKED_TAKE_TOL:g}) "
+        f"{'ok' if ok_plans else 'FAIL'}")
+    # device-busy share of the steady BiCGStab loop: a window of exactly
+    # BLOCKED_WINDOW_CG iterations (tolerance 0) on the first Newton
+    # iteration's operator and preconditioner, profiled device time over the
+    # unprofiled wall time
+    Av, rhs, M = solves[0]
+
+    def window():
+        return pbicgstab(Av, rhs, M, maxiter=BLOCKED_WINDOW_CG, tol=0.0)
+
+    tp = time.perf_counter()
+    n_win = window()[1]
+    wall1 = seconds_per_call(window)
+    busy = device_busy_ms(window)
+    share = busy / (1e3 * wall1) if busy is not None else None
+    tp = time.perf_counter() - tp
+    ok = (ok_plans and float(rn) <= 1e-7 * E and full_counts["j2_radial_return"] > 0
+          and full_counts["banded_take_ell"] > 0 and full_counts["banded_take_csr"] > 0 and min(p) > 0
+          and bool(torch.isfinite(z).all()) and n_win == BLOCKED_WINDOW_CG)
+    log(f"[blocked] (c) p max matrix {p[0]:.6f} inclusion {p[1]:.6f}; BiCGStab window of {n_win} iterations "
+        f"{1e3 * wall1:.1f} ms = {1e3 * wall1 / max(n_win, 1):.4f} ms an iteration, "
+        + (f"device busy {busy:.1f} ms, busy share {share:.3f}" if busy is not None
+           else "device time not measured (the profiler recorded no device event)")
+        + f" (measured and profiled in {tp:.1f}s); |R| <= 1e-7 E: {float(rn) <= 1e-7 * E} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[blocked] (c) full width: not converged, a plan disagrees with the plain take, or "
+                             "K1/K3/K4 did not all launch")
+    del b, blocked, step, states0, states, solves, Av, rhs, M
+    # (c) at 64 x 32: the fused step on the card against the host LU solve
+    # on the card, and against the same fused step on the CPU (both fields
+    # on the banded route: K4 and K3 on per-field plans)
+    t = time.perf_counter()
+    check = {}
+    for dev in (DEVICE, "cpu"):
+        b = mmi.build(BLOCKED_CHECK_NX, BLOCKED_CHECK_NX // 2, 2, device=dev, pull=BLOCKED_PULL)
+        if not all(q.domain.banded_active for q in b["qmaps"]):
+            raise AssertionError(f"[blocked] (c) {BLOCKED_CHECK_NX}x{BLOCKED_CHECK_NX // 2}: a field did not get "
+                                 f"its banded plans on {dev}")
+        reset_counts()
+        tc = time.perf_counter()
+        z, rn, states, step = blocked_step(b["blocked"], b["start"], **BLOCKED_OPTS)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        check[dev] = dict(b=b, z=z.cpu().numpy(), rn=rn, p=[st["p"].cpu().numpy() for st in states],
+                          info=dict(step.info), counts=read_counts(), s=time.perf_counter() - tc)
+    c, h = check[DEVICE], check["cpu"]
+    blocked = c["b"]["blocked"]
+    for p, part in zip(blocked.problems, np.split(c["b"]["start"], [blocked.sizes[0]])):
+        p.u.x = part.copy()
+    ok_lu, its_lu = blocked.solve(commit=False)
+    z_lu = np.concatenate([p.u.x for p in blocked.problems])
+    e_lu = float(np.abs(c["z"] - z_lu).max())
+    errs = {"z": float(np.abs(c["z"] - h["z"]).max() / np.abs(h["z"]).max())}
+    for i, (a, b_) in enumerate(zip(c["p"], h["p"])):
+        errs[f"p{i}"] = float(np.abs(a - b_).max() / np.abs(b_).max())
+    k_c, k_h = c["info"]["bicgstab"], h["info"]["bicgstab"]
+    ok = (ok_lu and np.allclose(c["z"], z_lu, rtol=BLOCKED_CHECK_TOL, atol=1e-9) and max(c["rn"], h["rn"]) <= 1e-7 * E
+          and c["info"]["newton"] == h["info"]["newton"] and abs(k_c - k_h) <= BLOCKED_CG_SPREAD * k_h
+          and all(e <= BLOCKED_TOL for e in errs.values()) and min(x.max() for x in h["p"]) > 0
+          and all(c["counts"][k] > 0 for k in ("j2_radial_return", "banded_take_ell", "banded_take_csr")))
+    log(f"[blocked] (c) {BLOCKED_CHECK_NX}x{BLOCKED_CHECK_NX // 2} P2, {blocked.ndofs} dofs: fused step card "
+        f"newton={c['info']['newton']} bicgstab={k_c} |R|={c['rn']:.3e} ({c['s']:.1f}s, launches {c['counts']}) | "
+        f"cpu newton={h['info']['newton']} bicgstab={k_h} |R|={h['rn']:.3e} ({h['s']:.1f}s); card vs CPU "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {BLOCKED_TOL:g}, BiCGStab counts within "
+        f"{BLOCKED_CG_SPREAD:.0%}); host LU on the card newton={its_lu}, max |z - z_lu| {e_lu:.3e} of |z| "
+        f"{np.abs(z_lu).max():.3e} (rtol {BLOCKED_CHECK_TOL:g}); {time.perf_counter() - t:.1f}s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[blocked] (c) the fused blocked step: card and CPU or host LU disagree, or K1/K3/K4 "
+                             "did not all launch")
+
+    log(f"[blocked] {time.perf_counter() - t0:.1f}s")
+    return {k: demo_counts[k] + full_counts[k] for k in full_counts}
+
+
+def bg_name(plan):
+    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+
+    return bg._best_take(plan).__name__ if plan is not None else None
 
 
 def main():
@@ -2039,6 +2371,7 @@ def main():
     log(f"[fefp] {time.perf_counter() - t_fefp:.1f}s")
     phase_crystal()
     phase_families()
+    blocked_counts = phase_blocked()
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -2051,11 +2384,17 @@ def main():
         def times(ks):
             return {"ms": total(lambda r: r["call"][layout], ks), "device_ms": total(lambda r: r["device"][layout], ks),
                     "host_us": total(lambda r: r["host"][layout], ks), "plain_ms": total(lambda r: r["t_p"], ks),
-                    "bound_ms": total(lambda r: r["bound"], ks), "library_ms": total(lambda r: r["t_l"], ks)}
+                    "bound_ms": total(lambda r: r["bound"], ks),
+                    # one library call a plan: table[idx] where the take is a
+                    # gather, the CSR SpMV where it sums (asm)
+                    "library_ms": total(lambda r: r["t_i"] if r["gather"] else r["t_l"], ks),
+                    "index_select_ms": total(lambda r: r["t_i"], ks),
+                    "index_select_device_ms": total(lambda r: r["device_i"], ks),
+                    "csr_spmv_ms": total(lambda r: r["t_l"], ks)}
 
         by_path = {"main": counts[name], "fused": fused_counts[name],
                    **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")},
-                   "demo": demo_counts[name], "fefp": fefp_counts[name]}
+                   "demo": demo_counts[name], "fefp": fefp_counts[name], "blocked": blocked_counts[name]}
         plate = times(keys)
         return {
             "name": name, "route": "cuda",
@@ -2065,7 +2404,8 @@ def main():
             "max_abs_err": max(takes[(f64, k)]["err"][layout] for k in keys + tet_keys),
             "ms": plate["ms"], "device_ms": plate["device_ms"], "host_us": plate["host_us"],
             "plain_ms": plate["plain_ms"], "bound_ms": plate["bound_ms"], "bound_by": "bytes",
-            "library_ms": plate["library_ms"],
+            "library_ms": plate["library_ms"], "index_select_ms": plate["index_select_ms"],
+            "index_select_device_ms": plate["index_select_device_ms"], "csr_spmv_ms": plate["csr_spmv_ms"],
             # the same three takes on the fine P2-tet block's plans
             "p2_tet": times(tet_keys),
         }
@@ -2089,7 +2429,8 @@ def main():
     kernels = [
         j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
                {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"],
-                "demo": demo_counts["j2_radial_return"]}, k1, j2_worst["full"], "full"),
+                "demo": demo_counts["j2_radial_return"], "blocked": blocked_counts["j2_radial_return"]},
+               k1, j2_worst["full"], "full"),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
                {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"], "factored"),
         take_row("banded_take_csr", "csr", "dolfinx_materials_tpu/ops/banded_gather.py:188"),

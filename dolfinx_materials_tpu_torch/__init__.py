@@ -44,4 +44,9 @@ def resolve_device(device=None) -> _torch.device:
 from .material import Material  # noqa: E402,F401
 from .state import DataManager, MaterialStateManager  # noqa: E402,F401
 from .quadrature_map import QuadratureMap  # noqa: E402,F401
-from .solvers import NonlinearMaterialProblem, solve_adaptive  # noqa: E402,F401
+from .solvers import (  # noqa: E402,F401
+    BlockedNonlinearProblem,
+    NonlinearMaterialProblem,
+    solve_adaptive,
+    solve_coupled,
+)

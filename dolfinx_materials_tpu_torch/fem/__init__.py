@@ -1,7 +1,8 @@
 """FEM layer: structured, curved and composite meshes, a gmsh reader,
 Lagrange elements tabulated with torch.func, batched assembly and
 matrix-free operators (host-built index sets, tensors on the domain's
-device), facet and body loads, and VTK/VTU/XDMF output."""
+device), facet and body loads, submeshes and interface laws, and
+VTK/VTU/XDMF output."""
 
 from .mesh import (  # noqa: F401
     Mesh,
@@ -26,4 +27,11 @@ from .io import (  # noqa: F401
     write_vtk,
     write_vtu,
     write_xdmf,
+)
+from .submesh import (  # noqa: F401
+    InterfaceDomain,
+    InterfaceTerm,
+    elastic_interface,
+    extract_submesh,
+    interface_facets,
 )

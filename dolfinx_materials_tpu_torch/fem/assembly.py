@@ -218,6 +218,20 @@ class QuadratureDomain:
 
         return f
 
+    def make_B(self, expr):
+        """u (ndofs,) -> B = d(expr)/d(u_e) at every point, (ne, nq, size,
+        ndof_el): the cross-field tangent blocks' test and trial operators."""
+
+        def f(u):
+            u_e = self.gather(u)
+
+            def cell(ue, d, x):
+                return jacfwd(lambda w_: self._cell_eval(expr, w_, d, x))(ue)
+
+            return vmap(cell)(u_e, self.dNdx, self.x_q)
+
+        return f
+
     def _work(self, exprs, d, x, w, flds):
         """sum_k ∫ field_k · expr_k(u) over one cell, as a function of u_e."""
 

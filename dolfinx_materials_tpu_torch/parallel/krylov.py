@@ -20,7 +20,8 @@ def _pbicgstab(Av, b, M, maxiter, tol, atol=0.0):
     ``|r|^2 > max(tol |b|, atol)^2``, fewer than ``maxiter`` steps were taken
     and rho is not 0. A breakdown divisor (rho, omega or a denominator
     exactly 0) is replaced by the dtype's eps; the caller's non-finite guard
-    handles the rest. One host read per iteration (the test)."""
+    handles the rest. Two host reads per iteration (|r|^2 and |rho| in the
+    test). Returns ``(x, iterations)``."""
     x = torch.zeros_like(b)
     r = b
     rhat, p, q = b, x, x
@@ -48,7 +49,7 @@ def _pbicgstab(Av, b, M, maxiter, tol, atol=0.0):
         r = s - omega * t
         rho = rho_
         k += 1
-    return x
+    return x, k
 
 
 def _sym_block_inv(Bm, eye):

@@ -321,9 +321,11 @@ class MaskedCG:
 
 # ---------------------------------------------------------------- the step
 class _Term:
-    """One qmap of the problem: its routes, per-dtype kernels and constants."""
+    """One qmap of the problem: its routes, per-dtype kernels and constants.
+    ``coupled`` names the ESVs whose values the caller hands to
+    :meth:`inputs` (a blocked problem's cross-field couplings)."""
 
-    def __init__(self, t, use_stencil, use_banded, dtypes, device):
+    def __init__(self, t, use_stencil, use_banded, dtypes, device, coupled=()):
         qmap = t["qmap"]
         self.material = m = qmap.material
         self.scales = t["scales"]
@@ -348,7 +350,7 @@ class _Term:
         ]
         self.grad_exprs = [qmap.gradient_exprs[g] for g in m.gradient_names]
         self.esv_entries = [
-            (name, size, "expr" if name in qmap.esv_exprs else "const")
+            (name, size, "coupled" if name in coupled else "expr" if name in qmap.esv_exprs else "const")
             for name, size in m.external_state_variables.items()
         ]
         if m.rotation_matrix is not None and np.shape(m.rotation_matrix) != (3, 3):
@@ -386,13 +388,17 @@ class _Term:
             if m.rotation_matrix is not None:
                 self.rot[dt] = {k: v.to(dt) for k, v in m._rotation_ops(n).items()}
 
-    def inputs(self, u, dt):
+    def inputs(self, u, dt, coupled=None):
         """The material's differentiable inputs at every point: gradients,
-        then ESVs (expressions of u or constants), ``(npts, n_inputs)``."""
+        then ESVs (expressions of u, constants, or the ``coupled`` values),
+        ``(npts, n_inputs)``."""
         fns = self.fns[dt]
         parts = [f(u) for f in fns["evals"]]
         for name, _, kind in self.esv_entries:
-            parts.append(fns["esv_evals"][name](u) if kind == "expr" else self.consts[dt][name])
+            if kind == "coupled":
+                parts.append(coupled[name])
+            else:
+                parts.append(fns["esv_evals"][name](u) if kind == "expr" else self.consts[dt][name])
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
     def integrate(self, x, state, dt, tdt, flux_only):

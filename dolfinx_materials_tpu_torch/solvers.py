@@ -11,6 +11,10 @@ counts compare with the JAX package; or a scipy LU on the host
 problem in float32 on the symmetrically scaled operator. Dirichlet BCs are
 imposed by masking (rows/cols to identity). ``solve()`` commits state via
 ``advance()`` on every map after convergence.
+
+Multi-field problems: ``solve_coupled`` (block Gauss-Seidel over single-field
+problems) and ``BlockedNonlinearProblem`` (one monolithic Newton with
+cross-field tangent blocks and interface laws).
 """
 
 from __future__ import annotations
@@ -614,3 +618,368 @@ def solve_adaptive(problem, set_load, t_end, nsteps0=10, max_cutbacks=10, growth
                     f"load stepping failed at t={t_try:.4g} after {max_cutbacks} cutbacks"
                 )
     return accepted
+
+
+def solve_coupled(problems, transfers, max_outer=25, rtol=1e-8, atol=1e-12):
+    """Partitioned multi-field solve (block Gauss-Seidel): iterate over the
+    single-field Newton problems, each preceded by its ``transfer`` (a
+    callable that pushes the other fields into it, e.g. the mechanical
+    material's Temperature ESV from the current thermal solution, or None),
+    until no field's solution changes by more than ``atol + rtol
+    max(|u|, 1)``. The sub-solves run with ``commit=False``; every map
+    commits (``advance``) once, on outer convergence.
+
+    Returns ``(converged, outer iterations)``."""
+    for outer in range(max_outer):
+        change = scale = 0.0
+        for prob, transfer in zip(problems, transfers):
+            if transfer is not None:
+                transfer()
+            u_old = prob.u.x.copy()
+            ok, _ = prob.solve(commit=False)
+            if not ok:
+                return False, outer
+            change = max(change, float(np.linalg.norm(prob.u.x - u_old)))
+            scale = max(scale, float(np.linalg.norm(prob.u.x)))
+        if change <= atol + rtol * max(scale, 1.0):
+            for prob in problems:
+                for qmap in prob.qmaps:
+                    qmap.advance()
+            return True, outer + 1
+    return False, max_outer
+
+
+def blocked_apply(v, mask, sizes, diag_blocks, coupling_blocks, interface_blocks):
+    """y = J v of a monolithic multi-field operator, Dirichlet rows and
+    columns as identity (the JAX package's
+    ``BlockedNonlinearProblem._apply_blocked``; the fused blocked step
+    applies it too). ``sizes``: each field's dof count (``v`` is the
+    fields concatenated). The blocks, applied in this order:
+
+    - ``diag_blocks``: ``(field, domain, K)`` per term, ``K`` prepared for
+      ``domain.spmv``;
+    - ``coupling_blocks``: ``(row, col, row_domain, gather_col, K_e)`` per
+      coupling, ``gather_col`` taking the col field's element dofs;
+    - ``interface_blocks``: ``(i, j, tensors, base)`` per interface, its four
+      facet blocks ``+base, -base, -base, +base``
+      (:meth:`~.fem.submesh.InterfaceTerm.matrices`), summed through the
+      domain's fixed-order plans."""
+    v0 = torch.where(mask, torch.zeros_like(v), v)
+    parts = list(torch.split(v0, list(sizes)))
+    ys = [torch.zeros_like(p) for p in parts]
+    for f, dom, K in diag_blocks:
+        ys[f] = ys[f] + dom.spmv(K, parts[f])
+    for row, col, dom, gather_col, K in coupling_blocks:
+        ys[row] = ys[row] + dom.scatter_dofs(torch.einsum("eij,ej->ei", K, gather_col(parts[col])))
+    for i, j, t, base in interface_blocks:
+        b1 = torch.einsum("fab,fb->fa", base, parts[i][t["dofs1"]])
+        b2 = torch.einsum("fab,fb->fa", base, parts[j][t["dofs2"]])
+        ys[i] = ys[i] + fixed_sum((b1 - b2).reshape(-1), t["plan1"])
+        ys[j] = ys[j] + fixed_sum((b2 - b1).reshape(-1), t["plan2"])
+    return torch.where(mask, v, torch.cat(ys))
+
+
+def blocked_diagonal(mask, sizes, diag_blocks, interface_blocks, dtype, device):
+    """The diagonal of :func:`blocked_apply`'s operator (``diag_blocks`` with
+    raw element matrices; interface entries included), unit on Dirichlet
+    rows and where it vanishes."""
+    diag = [torch.zeros(n, dtype=dtype, device=device) for n in sizes]
+    for f, dom, K in diag_blocks:
+        diag[f] = diag[f] + dom.matrix_diagonal(K, sizes[f])
+    for i, j, t, base in interface_blocks:
+        db = torch.diagonal(base, dim1=1, dim2=2).reshape(-1)
+        diag[i] = diag[i] + fixed_sum(db, t["plan1"])
+        diag[j] = diag[j] + fixed_sum(db, t["plan2"])
+    diag = torch.cat(diag)
+    return torch.where(mask | (diag.abs() < 1e-30), torch.ones_like(diag), diag)
+
+
+class BlockedNonlinearProblem:
+    """Monolithic multi-field Newton: every field in one residual and one
+    operator with cross-field consistent-tangent blocks.
+
+    The concatenated dof vector is solved with a block operator: the diagonal
+    blocks are each field's element matrices, an off-diagonal block is
+    ``K_rc = ∫ B_y^T C_(y,x) B_x^col dx`` with ``C_(y,x)`` a declared flux x
+    external-state-variable tangent block of the row material and
+    ``B_x^col`` the derivative of the ESV expression with respect to the
+    other field's element dofs; interface laws add their four facet blocks.
+
+    ``problems``: single-field :class:`NonlinearMaterialProblem` s (their
+    ``u``, ``bcs``, maps, terms and external forces are reused).
+    ``couplings``: tuples ``(row, col, qmap, y_name, x_name, x_expr[,
+    scale])``: ``qmap`` (a map of ``problems[row]``) has a tangent block
+    ``(y_name, x_name)`` whose input ``x_name`` is an ESV evaluated from
+    ``problems[col]``'s field by ``x_expr``. The coupling owns the
+    transfer: before every constitutive update the ESV is evaluated again
+    from the current col iterate. ``interfaces``: ``fem.InterfaceTerm`` s.
+
+    Options: ``rtol``/``atol`` (dtype-aware defaults), ``max_it``,
+    ``ksp_type`` ("bicgstab" default, "gmres" or "lu"), ``ksp_rtol``,
+    ``ksp_maxiter``, ``line_search``, ``max_backtracks``, ``verbose``. The
+    Krylov solves take the diagonal (interface entries included) as
+    preconditioner.
+    """
+
+    def __init__(self, problems, couplings=(), interfaces=(), options=None):
+        from .fem.assembly import QuadratureDomain
+
+        self.problems = list(problems)
+        self.interfaces = list(interfaces)
+        self.device = self.problems[0].device
+        self.dtype = self.problems[0].dtype
+        o = dict(options or {})
+        self.rtol = o.pop("rtol", None)
+        self.atol = o.pop("atol", None)
+        self.max_it = o.pop("max_it", 25)
+        self.ksp_type = o.pop("ksp_type", "bicgstab")
+        self.ksp_rtol = o.pop("ksp_rtol", None)
+        self.ksp_maxiter = o.pop("ksp_maxiter", 2000)
+        self.line_search = o.pop("line_search", True)
+        self.max_backtracks = o.pop("max_backtracks", 12)
+        self.verbose = o.pop("verbose", False)
+        if self.ksp_type not in ("bicgstab", "gmres", "lu"):
+            raise ValueError(f"ksp_type must be 'bicgstab', 'gmres' or 'lu', got {self.ksp_type!r}")
+        if o:
+            raise TypeError(f"unknown options: {sorted(o)}")
+        self.converged = False
+        self.iterations = 0
+        self.metrics: dict = {}
+
+        self.sizes = [p.u.space.num_dofs for p in self.problems]
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)]).astype(np.int64)
+        self.ndofs = int(self.offsets[-1])
+
+        self._couplings = []
+        for c in couplings:
+            row, col, qmap, y, x, x_expr = c[:6]
+            scale = c[6] if len(c) > 6 else 1.0
+            if (y, x) not in qmap.material.tangent_blocks:
+                raise KeyError(f"material '{qmap.material.name}' declares no tangent block ({y}, {x})")
+            # the col field's basis on the row map's cells and quadrature
+            col_dom = QuadratureDomain(self.problems[col].u.space, qmap.domain.quad_degree,
+                                       np.asarray(qmap.cells), dtype=qmap.dtype, device=qmap.device)
+            self._couplings.append(dict(
+                row=row, col=col, qmap=qmap, y=y, x=x, scale=scale, col_dom=col_dom,
+                eval_x=col_dom.make_eval(x_expr), B_x=col_dom.make_B(x_expr), x_expr_fn=x_expr,
+            ))
+
+    # ------------------------------------------------------------------ split
+    def _split(self, z):
+        return [z[self.offsets[i]: self.offsets[i + 1]] for i in range(len(self.problems))]
+
+    def _refresh_esvs(self, parts):
+        for c in self._couplings:
+            c["qmap"].material.update_external_state_variable(c["x"], c["eval_x"](parts[c["col"]]))
+
+    def _constitutive_update(self, parts, flux_only=False):
+        self._refresh_esvs(parts)
+        for p, u_i in zip(self.problems, parts):
+            if flux_only:
+                p._constitutive_update_flux_only(u_i)
+            else:
+                p._constitutive_update(u_i)
+
+    def _residual(self, parts):
+        rs = [p._residual(u_i) for p, u_i in zip(self.problems, parts)]
+        for itf in self.interfaces:
+            r_i, r_j = itf.residuals(parts[itf.i], parts[itf.j], self.sizes[itf.i], self.sizes[itf.j])
+            rs[itf.i] = rs[itf.i] + r_i
+            rs[itf.j] = rs[itf.j] + r_j
+        return torch.cat(rs)
+
+    def _masks(self):
+        """``(mask, values)`` of every field's Dirichlet BCs, concatenated,
+        as tensors on the problems' device."""
+        masks, vals = zip(*(combine_bcs(p.bcs, p.u.space.num_dofs) for p in self.problems))
+        return (torch.as_tensor(np.concatenate(masks), device=self.device),
+                torch.as_tensor(np.concatenate(vals), dtype=self.dtype, device=self.device))
+
+    # --------------------------------------------------------------- operator
+    def _coupling_matrices(self, parts):
+        """Element coupling blocks K_e^{rc} (ne, ndof_row_el, ndof_col_el),
+        then each interface's four facet blocks."""
+        out = []
+        for c in self._couplings:
+            qmap = c["qmap"]
+            dom = qmap.domain
+            C = qmap.tangent_block(c["y"], c["x"])  # (npts, sy, sx)
+            C = C.reshape(dom.ne, dom.nq, C.shape[-2], C.shape[-1])
+            # the row term pairing flux y with its work-conjugate expression:
+            # its test operator, scaled by the term's own scale
+            row_p = self.problems[c["row"]]
+            t = next(t for t in row_p._terms if t["qmap"] is qmap)
+            k_term = t["field_names"].index(c["y"])
+            if "B_y" not in c:
+                c["B_y"] = dom.make_B(t["exprs"][k_term])
+            term_scale = row_p._scale_value(t["scales"][k_term])
+            By = c["B_y"](parts[c["row"]])  # (ne, nq, sy, ndof_row)
+            Bx = c["B_x"](parts[c["col"]])  # (ne, nq, sx, ndof_col)
+            out.append((c["scale"] * term_scale) * torch.einsum("eqai,eqab,eqbj,eq->eij", By, C, Bx, dom.wdetJ))
+        for itf in self.interfaces:
+            out.append(itf.matrices(parts[itf.i], parts[itf.j]))
+        return out
+
+    def _blocks(self, diag_Kels, coup_Ks):
+        """:func:`blocked_apply`'s block lists from the per-problem element
+        matrices and :meth:`_coupling_matrices`."""
+        diag = [(i, t["qmap"].domain, K)
+                for i, (p, Ks) in enumerate(zip(self.problems, diag_Kels)) for t, K in zip(p._terms, Ks)]
+        coup = [(c["row"], c["col"], c["qmap"].domain, c["col_dom"].gather, K)
+                for c, K in zip(self._couplings, coup_Ks)]
+        # an interface's four blocks are +-base: K_ii is its base
+        itf = [(itf.i, itf.j, itf.domain.tensors(self.device, self.dtype), Ks[0])
+               for itf, Ks in zip(self.interfaces, coup_Ks[len(self._couplings):])]
+        return diag, coup, itf
+
+    def _lu_matrix(self, diag_Kels, coup_Ks):
+        """The assembled monolithic matrix on the host (scipy COO)."""
+        import scipy.sparse as sp
+
+        rows, cols, vals = [], [], []
+
+        def add(K, rdofs, cdofs):
+            k_r, k_c = rdofs.shape[1], cdofs.shape[1]
+            rows.append(np.repeat(rdofs, k_c, axis=1).ravel())
+            cols.append(np.tile(cdofs, (1, k_r)).ravel())
+            vals.append(K.detach().cpu().numpy().ravel())
+
+        for i, p in enumerate(self.problems):
+            for t, K_e in zip(p._terms, diag_Kels[i]):
+                dm = t["qmap"].domain._dofmap_np + self.offsets[i]
+                add(K_e, dm, dm)
+        for c, K in zip(self._couplings, coup_Ks):
+            add(K, c["qmap"].domain._dofmap_np + self.offsets[c["row"]],
+                c["col_dom"]._dofmap_np + self.offsets[c["col"]])
+        for itf, Ks in zip(self.interfaces, coup_Ks[len(self._couplings):]):
+            d_i, d_j = itf.scatter_dofs()
+            d_i, d_j = d_i + self.offsets[itf.i], d_j + self.offsets[itf.j]
+            for K, rdofs, cdofs in zip(Ks, (d_i, d_i, d_j, d_j), (d_i, d_j, d_i, d_j)):
+                add(K, rdofs, cdofs)
+        return sp.coo_matrix(
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(self.ndofs, self.ndofs)
+        )
+
+    def _linear_solve(self, diag_Kels, coup_Ks, rhs, mask):
+        """Solve J du = rhs with bc rows/cols as identity (du[bc] = 0).
+        Returns ``(du, Krylov iterations)`` (0 for "lu")."""
+        zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
+        b = torch.where(mask, zero, rhs)
+        if self.ksp_type == "lu":
+            import scipy.sparse as sp
+            import scipy.sparse.linalg as spla
+
+            # Dirichlet rows and columns dropped, a unit diagonal in their place
+            C = self._lu_matrix(diag_Kels, coup_Ks)
+            bc = mask.cpu().numpy()
+            bc_idx = np.nonzero(bc)[0]
+            keep = ~(bc[C.row] | bc[C.col])
+            A = sp.coo_matrix(
+                (np.concatenate([C.data[keep], np.ones(len(bc_idx))]),
+                 (np.concatenate([C.row[keep], bc_idx]), np.concatenate([C.col[keep], bc_idx]))),
+                shape=C.shape,
+            ).tocsr()
+            return torch.as_tensor(spla.spsolve(A, b.cpu().numpy()), dtype=rhs.dtype, device=rhs.device), 0
+
+        diag_K, coup, itf = self._blocks(diag_Kels, coup_Ks)
+        prepared = [(f, dom, dom.spmv_prepare(K)) for f, dom, K in diag_K]
+
+        def Av(v):
+            return blocked_apply(v, mask, self.sizes, prepared, coup, itf)
+
+        # the diagonal (interface entries included) as preconditioner
+        diag = blocked_diagonal(mask, self.sizes, diag_K, itf, self.dtype, self.device)
+
+        def M(v):
+            return v / diag
+
+        ksp_rtol = self.ksp_rtol
+        if ksp_rtol is None:
+            ksp_rtol = 1e-12 if torch.finfo(rhs.dtype).eps < 1e-9 else 1e-7
+        du, its = KRYLOV[self.ksp_type](Av, b, ksp_rtol, self.ksp_maxiter, M)
+        # the reference's guard: a Krylov solve that diverged or barely moved
+        # the residual is replaced by a preconditioned gradient step
+        lin_res = torch.linalg.norm(Av(du) - b)
+        bad = ~torch.isfinite(lin_res) | (lin_res > 0.9 * torch.linalg.norm(b))
+        return torch.where(bad, M(b), du), its
+
+    # ----------------------------------------------------------------- solve
+    def solve(self, commit: bool = True):
+        """Newton iterations on the concatenated field; returns
+        ``(converged, iterations)``. ``commit=False`` skips ``advance()``."""
+        mask, bc_vals = self._masks()
+        z = torch.cat([torch.as_tensor(p.u.x, dtype=self.dtype, device=self.device) for p in self.problems])
+        z = torch.where(mask, bc_vals, z)
+        eps_dtype = float(torch.finfo(self.dtype).eps)
+        f64 = eps_dtype < 1e-9
+        rtol = self.rtol if self.rtol is not None else (1e-10 if f64 else 50.0 * eps_dtype)
+        atol = self.atol if self.atol is not None else (1e-10 if f64 else 0.0)
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+
+        def rnorm(R):
+            return float(torch.linalg.norm(torch.where(mask, zero, R)))
+
+        norm0 = None
+        self.converged = False
+        res_history, lin_iters = [], []
+        t_start = time.perf_counter()
+        for it in range(self.max_it):
+            parts = self._split(z)
+            self._constitutive_update(parts)
+            R = self._residual(parts)
+            norm = rnorm(R)
+            if not np.isfinite(norm):
+                break
+            res_history.append(norm)
+            if norm0 is None:
+                norm0 = norm if norm > 0 else 1.0
+            if self.verbose:
+                print(f"  blocked Newton it {it}: |R| = {norm:.6e}")
+            if norm < atol or norm < rtol * norm0:
+                self.converged = True
+                self.iterations = it
+                break
+            diag_Kels = [p._element_matrices(u_i) for p, u_i in zip(self.problems, parts)]
+            coup_Ks = self._coupling_matrices(parts)
+            du, its = self._linear_solve(diag_Kels, coup_Ks, -R, mask)
+            lin_iters.append(its)
+            if not self.line_search:
+                z = z + du
+                continue
+            alpha, best_alpha, best_n = 1.0, None, np.inf
+            for _ in range(self.max_backtracks):
+                z_try = z + alpha * du
+                parts_try = self._split(z_try)
+                self._constitutive_update(parts_try, flux_only=True)
+                n_try = rnorm(self._residual(parts_try))
+                if np.isfinite(n_try) and n_try < best_n:
+                    best_alpha, best_n = alpha, n_try
+                if np.isfinite(n_try) and n_try < (1 - 1e-4 * alpha) * norm:
+                    break
+                alpha *= 0.5
+            if best_alpha is None or best_n >= norm:
+                # restore s1 to the kept z (the trials overwrote it) before
+                # any exit that commits
+                self._constitutive_update(self._split(z), flux_only=True)
+                self.iterations = it
+                if norm < np.sqrt(eps_dtype) * norm0:
+                    self.converged = True
+                break
+            z = z + best_alpha * du
+            if best_n != n_try:
+                self._constitutive_update(self._split(z), flux_only=True)
+
+        for p, u_i in zip(self.problems, self._split(z)):
+            p.u.x = u_i.cpu().numpy().copy()
+        self.metrics = {
+            "converged": self.converged,
+            "newton_iterations": self.iterations,
+            "linear_iterations": lin_iters,
+            "residual_history": res_history,
+            "wall_time_s": time.perf_counter() - t_start,
+        }
+        if self.converged and commit:
+            for p in self.problems:
+                for qmap in p.qmaps:
+                    qmap.advance()
+        return self.converged, self.iterations

@@ -600,3 +600,88 @@ def test_root_backward_on_card(card):
         grads.append(float(g["a"]))
     assert grads[0] != 0.0
     assert abs(grads[1] / grads[0] - 1.0) <= 1e-10
+
+
+def counted(fn):
+    """``fn()``'s result and the launches of K1, K3 and K4 during it."""
+    wrappers = (j2_cuda.j2_radial_return, bg.banded_take_csr, bg.banded_take_ell)
+    before = [w.launches for w in wrappers]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {w.__name__: w.launches - b for w, b in zip(wrappers, before)}
+
+
+def test_blocked_interface_host_solve_card_vs_cpu(card):
+    """The multimaterial demo twin's blocked LU solve (20 x 10 P1, J2 on both
+    sides): the same Newton count on card and CPU, both fields to 1e-8;
+    K1 runs both materials, K3 the interface's fixed-order sums."""
+    from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
+
+    out = {}
+    for dev in ("cpu", card):
+        b = mmi.build(device=dev)
+        (ok, its), launches = counted(b["blocked"].solve)
+        assert ok
+        out[str(dev)] = (its, np.concatenate([p.u.x for p in b["problems"]]))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert float(np.abs(out["cuda"][1] - out["cpu"][1]).max()) <= 1e-8 * np.abs(out["cpu"][1]).max()
+    assert launches["j2_radial_return"] > 0 and launches["banded_take_csr"] > 0
+
+
+def test_blocked_fused_step_card_vs_cpu(card):
+    """The fused blocked step on a 48 x 24 P2 interface plate (both fields on
+    the banded route): card against CPU, z and p to 1e-8 of scale with equal
+    Newton counts; K1, K3 and K4 all launch on the card. The BiCGStab counts
+    (~1,400) may differ by a few iterations: the card's dots and batched
+    products round in another order than the CPU's, and the stopping test
+    at 1e-8 of |b| meets that rounding (1,429 against 1,415 on an H100)."""
+    from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_blocked_step
+
+    out = {}
+    for dev in ("cpu", card):
+        # the demo's plate on a 48 x 24 P2 parent, the inclusion's right edge
+        # pulled from the uniform stretch
+        b = mmi.build(48, 24, 2, device=dev, pull=1.5e-2)
+        assert all(q.domain.banded_active for q in b["qmaps"])
+        blocked = b["blocked"]
+        step, pad = make_sharded_blocked_step(blocked, device_mesh(1, devices=[dev]), n_newton=12, n_cg=4000)
+        mask, vals = blocked._masks()
+        states = pad([q.material.data_manager.s0.internal for q in b["qmaps"]])
+        z0 = torch.where(mask, vals, torch.as_tensor(b["start"], device=dev))
+        (z, st, rn), launches = counted(lambda: step(z0, states, mask, vals, 0.0))
+        assert float(rn) <= 1e-7 * E
+        out[str(dev)] = (z.cpu(), [s["p"].cpu() for s in st], step.info["newton"], step.info["bicgstab"])
+    (zc, pc, nc, kc), (zh, ph, nh, kh) = out["cuda"], out["cpu"]
+    assert nc == nh and abs(kc - kh) <= 0.05 * kh
+    assert float((zc - zh).abs().max()) <= 1e-8 * float(zh.abs().max())
+    for a, b_ in zip(pc, ph):
+        assert float(b_.max()) > 0 and float((a - b_).abs().max()) <= 1e-8 * float(b_.abs().max())
+    assert all(n > 0 for n in launches.values()), launches
+
+
+def test_blocked_thermo_step_and_host_solve_card_vs_cpu(card):
+    """The stiff thermo-mechanical coupling (cross-field blocks both ways,
+    generic path) at N = 6: the host LU solve and the fused step on card and
+    CPU, z to 1e-8 with equal counts."""
+    from dolfinx_materials_tpu_torch.demos.blocked_thermomechanics import build
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_blocked_step
+
+    out = {}
+    for dev in ("cpu", card):
+        heat, mech, qT, qu, coups = build(6, dev)
+        ok, its = tdm.BlockedNonlinearProblem([heat, mech], coups, options={"ksp_type": "lu"}).solve()
+        assert ok
+        z_lu = np.concatenate([heat.u.x, mech.u.x])
+        heat, mech, qT, qu, coups = build(6, dev)
+        blocked = tdm.BlockedNonlinearProblem([heat, mech], coups)
+        step, pad = make_sharded_blocked_step(blocked, device_mesh(1, devices=[dev]), n_newton=16, n_cg=400)
+        mask, vals = blocked._masks()
+        z0 = torch.where(mask, vals, torch.as_tensor(np.concatenate([heat.u.x, mech.u.x]), device=dev))
+        z, _, rn = step(z0, pad([q.material.data_manager.s0.internal for q in (qT, qu)]), mask, vals, 0.0)
+        assert float(rn) <= 1e-7 * E
+        out[str(dev)] = (its, z_lu, step.info["newton"], step.info["bicgstab"], z.cpu().numpy())
+    c, h = out["cuda"], out["cpu"]
+    assert (c[0], c[2], c[3]) == (h[0], h[2], h[3])
+    for a, b in ((c[1], h[1]), (c[4], h[4])):
+        assert float(np.abs(a - b).max()) <= 1e-8 * np.abs(b).max()

@@ -17,7 +17,10 @@ tests/test_demos_smoke.py, each run in ``tmp_path``:
   the Rankine materials against the JAX demo's ``stress_paths`` to 1e-10 of
   the yield scale;
 - nn_surrogate at 300 steps: the loss history to 1e-8 relative, the
-  displacement error to 1e-6 relative.
+  displacement error to 1e-6 relative;
+- multimaterial_interface at its defaults (20 x 10 P1): the same Newton
+  count, the matrix's p max to 1e-8 relative, the interface jump and both
+  fields to 1e-8 of their scale.
 """
 
 import importlib.util
@@ -39,6 +42,7 @@ from dolfinx_materials_tpu_torch.demos import (  # noqa: E402
     finite_strain_elastoplasticity,
     heat_transfer,
     hyperelasticity,
+    multimaterial_interface,
     nn_surrogate,
     plane_elastoplasticity,
     thermomechanics,
@@ -192,3 +196,17 @@ def test_nn_surrogate_matches_jax(monkeypatch, capsys):
     assert np.abs(np.array(out["history"]) / np.array(fits[0]) - 1.0).max() <= 1e-8
     assert rel(out["u"], problems[0].u.x) <= 1e-6
     assert out["history"][-1] < out["history"][0]
+
+
+def test_multimaterial_interface_matches_jax(monkeypatch):
+    mod = load("multimaterial_interface")
+    problems = recording(mod, monkeypatch)
+    its_j, p_j, jump_j = mod.main()
+    its, p_max_m, jump = multimaterial_interface.main(device="cpu")
+    assert its == its_j
+    assert abs(p_max_m - p_j) <= 1e-8 * p_j and p_max_m > 1e-4
+    assert rel(jump, jump_j) <= 1e-8
+    b = multimaterial_interface.build(device="cpu")
+    assert b["blocked"].solve() == (True, its)
+    for got, want in zip(b["problems"], problems):
+        assert rel(got.u.x, want.u.x) <= 1e-8

@@ -46,7 +46,8 @@ def test_pbicgstab_matches_jax(kind, maxiter):
     A = mats[kind]
     d = np.diag(A).copy()
     At, bt, dt = (torch.as_tensor(a) for a in (A, b, d))
-    x_t = tkrylov._pbicgstab(lambda v: At @ v, bt, lambda v: v / dt, maxiter, 1e-10)
+    x_t, k = tkrylov._pbicgstab(lambda v: At @ v, bt, lambda v: v / dt, maxiter, 1e-10)
+    assert 0 < k <= maxiter
     Aj, dj = jnp.asarray(A), jnp.asarray(d)
     x_j = np.asarray(jkrylov._pbicgstab(lambda v: Aj @ v, jnp.asarray(b), lambda v: v / dj, maxiter, 1e-10))
     np.testing.assert_allclose(x_t.numpy(), x_j, rtol=0, atol=1e-10 * np.abs(x_j).max())
