@@ -6,7 +6,7 @@ Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs nineteen phases; any failure
+(sm_90a) into ``build/kernels/`` and runs twenty phases; any failure
 exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -65,7 +65,9 @@ exits non-zero before the result line is printed:
     SVK inclusions at 1e12, cfg (2, 1, 3), 10 mixed steps;
 13. the tet block at N = 4, the composite at cfg (1, 1, 2) and the hex
     block at N = 3 in f32, 3 steps each, on the card and on the CPU: u to
-    1e-6 on the mixed protocols, to 1e-5 in f32;
+    1e-6 on the mixed protocols, to 1e-5 in f32; then the composite with
+    every step solved to rtol 1e-8, u to 1e-6 after every step and equal
+    Newton counts;
 14. law programs (run right after phase 2): both J2 kernels running a
     traced hardening law (a tanh law and Voce written as a lambda) at 2^21
     points, f32 and f64, both layouts, against the plain return map on the
@@ -98,7 +100,17 @@ exits non-zero before the result line is printed:
     points, 264,196 dofs) through ``parallel.make_sharded_blocked_step``:
     Newton and BiCGStab counts, |R| <= 1e-7 E, wall seconds, ms per BiCGStab
     iteration, the device-busy share of its first Newton iteration, K1/K3/K4
-    launches; at 64x32 against the host LU solve on the card.
+    launches; at 64x32 against the host LU solve on the card;
+20. the multi-rank layer (``[dist]``, ``parallel.multiprocess``): (a) the
+    phase-9 plate and first load through one NCCL rank of a process group
+    (``python3 chip_smoke.py --dist-worker ...``, launched by
+    ``multiprocess.launch``), u, p and counts bitwise equal to phase 9's
+    first step, K1/K3/K4 launched on the rank; (b) two ranks sharing the
+    card over gloo on phase 8's plate (on the banded route), both dof
+    layouts, and (c) the fused blocked step over the same two ranks at
+    phase 19's 64x32, each against its one-rank card run (u or z and p to
+    1e-8, equal Newton counts, Krylov counts within 5 %), every rank
+    launching K1, K3 and K4; ms per load step of each.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -111,10 +123,13 @@ H100 SXM data-sheet rates in :data:`PEAK`.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1136,7 +1151,8 @@ def phase_fused(nx, fast):
     same steps (``fast``); CG wall ms per iteration and the device-busy
     share; one mixed-precision step; one Newton update with the CG graph
     against the eager blocks; two builds of the coarse matrix. Returns the
-    launch counts of the three steps and their factors (``fused_launches``)."""
+    launch counts of the three steps, their factors (``fused_launches``) and
+    the first step's u, p, counts and seconds ([dist] (a)'s reference)."""
     from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
     from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
@@ -1187,6 +1203,9 @@ def phase_fused(nx, fast):
             factors[k] = dict(calls=factors[k]["calls"] + f["calls"], captured=factors[k]["captured"] + f["captured"],
                               replays=factors[k]["replays"] + f["replays"], per_replay=f["per_replay"])
         n_cg += ncg
+        if i == 0:  # [dist] (a) holds its rank's first step against this one
+            first = dict(u=u.cpu(), p=states[0]["p"].reshape(-1).cpu(), newton=nn, cg=ncg, s=walls[-1],
+                         counts=counts)
         log(f"[fused] u_y={uy:g}: newton={nn} cg={ncg} wall_s={walls[-1]:.3f} (host path {fast['step_s'][i]:.3f} s, "
             f"newton={fast['newton'][i]} cg={fast['cg'][i]}) residual {float(rn):.4e} ({float(rn) / float(rn0):.2e} "
             f"of entering) cg blocks {step.cg.blocks} (last solve) launches {counts} = wrapper calls "
@@ -1302,7 +1321,7 @@ def phase_fused(nx, fast):
         raise AssertionError("coarse matrix: two fixed-order builds differ")
     if not plain:
         raise AssertionError("coarse matrix: the kernel's fixed-order sum differs from its plain version")
-    return total, factors
+    return total, factors, first
 
 
 # ---------------------------------------------------------- phases 10 to 13
@@ -1314,6 +1333,9 @@ def phase_fused(nx, fast):
 #: the composite at cfg (1, 1, 2) and the hex block at N = 3, 3 steps each)
 OGDEN_TET_N, OGDEN_TET_BIG_N, OGDEN_TET_BIG_STEPS = 10, 20, 1
 OGDEN_HEX_N = 19
+#: [ogden-hex]'s warm run: the protocol's first steps (its 10 steps took
+#: 43 s, PR 9; cut to make room for [dist])
+OGDEN_HEX_WARM_STEPS = 4
 COMPOSITE_CFG = (2, 1, 3)
 OGDEN_CPU_N, OGDEN_CPU_CFG, OGDEN_CPU_HEX_N, OGDEN_CPU_STEPS = 4, (1, 1, 2), 3, 3
 #: per-step relative residual bars: the mixed protocols' rtol (1e-4), and
@@ -1328,14 +1350,18 @@ MIXED_BAR, HEX_BAR = 1e-4, 3e-3
 #: packages' f32 runs on the CPU, 2.1e-6 at N = 3 after 3 steps,
 #: tests/test_torch_ogden_hex.py)
 MIXED_CPU_TOL, HEX_CPU_TOL = 1e-6, 1e-5
+#: [ogden-cpu]'s composite again with every step solved to rtol 1e-8 (30
+#: Newton x 300 CG, the protocol's cg_rtol 1e-3: tests/test_torch_composite.py),
+#: u after every step held to MIXED_CPU_TOL, equal Newton counts
+OGDEN_STRICT = dict(n_newton=30, n_cg=300, rtol=1e-8, cg_rtol=1e-3)
 TAKES = ("banded_take_ell", "banded_take_csr")
 
 
-def run_ogden(tag, proto, run_steps, bar=MIXED_BAR, once=False):
+def run_ogden(tag, proto, run_steps, bar=MIXED_BAR, once=False, warm_steps=None):
     """A protocol's first load step (the first build: kernels, CUDA-graph
-    captures), then all its steps again from u = 0 (``run_steps(proto,
-    n)``, n None for all), the warm run; with ``once`` only the second run
-    (its first build included). The counts are set to 0 before each run and
+    captures), then all its steps (or its first ``warm_steps``) again from
+    u = 0 (``run_steps(proto, n)``, n None for all), the warm run; with
+    ``once`` only the second run (its first build included). The counts are set to 0 before each run and
     the last run's launches derived as [fused] derives them. Prints
     per-step relative |R|, Newton and CG counts, the wall seconds of each
     run and the launches, and holds every step to ``bar``, the CG to f32
@@ -1352,7 +1378,7 @@ def run_ogden(tag, proto, run_steps, bar=MIXED_BAR, once=False):
         cg_wall[0] += time.perf_counter() - t
         return out
 
-    for n in (None,) if once else (1, None):
+    for n in (warm_steps,) if once else (1, warm_steps):
         reset_counts()
         before = graph_snapshot(cg)
         cg_wall[0] = 0.0
@@ -1439,7 +1465,8 @@ def phase_ogden_tet():
 
 def phase_ogden_hex():
     """[ogden-hex]: the P1-hex block at N = 19, f32, make_sharded_newton_step
-    on the 3D stencil (no take launches)."""
+    on the 3D stencil (no take launches); its first ``OGDEN_HEX_WARM_STEPS``
+    steps warm."""
     t = time.perf_counter()
     proto, run = ogden_hex(OGDEN_HEX_N)
     stencil = proto["qmap"].domain._stencil
@@ -1447,7 +1474,7 @@ def phase_ogden_hex():
         f"{stencil}; set-up {time.perf_counter() - t:.2f}s")
     if stencil is None:
         raise AssertionError("ogden-hex: the hex block did not take the 3D stencil")
-    return run_ogden("ogden-hex", proto, run, bar=HEX_BAR)[3]
+    return run_ogden("ogden-hex", proto, run, bar=HEX_BAR, warm_steps=OGDEN_HEX_WARM_STEPS)[3]
 
 
 def phase_composite():
@@ -1517,6 +1544,44 @@ def phase_ogden_cpu():
             f"(bar {bar:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ogden-cpu: {name} card and CPU disagree")
+    phase_ogden_cpu_strict()
+
+
+def phase_ogden_cpu_strict():
+    """[ogden-cpu]'s composite with every step solved to rtol 1e-8
+    (``OGDEN_STRICT``) on the card and on the CPU: equal Newton counts, every
+    step's relative residual <= 1e-8 and u after the last step to
+    ``MIXED_CPU_TOL`` of its largest entry; u after every step is held to
+    the same bar and printed (ROADMAP Queue 3 item 4: the first step's
+    misses it on the H100, 2.21e-05, with 6 Newton on both)."""
+    from dolfinx_materials_tpu_torch.demos import composite_hyperelasticity
+
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        proto = composite_hyperelasticity.make_protocol(OGDEN_CPU_CFG, n_steps=OGDEN_CPU_STEPS,
+                                                        exx_max=0.02 * OGDEN_CPU_STEPS, device=dev, **OGDEN_STRICT)
+        proto["step"] = rec = StepRecorder(proto["step"])
+        t = time.perf_counter()
+        _, stats = composite_hyperelasticity.run_steps(proto)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        out[dev] = (rec.u, stats, time.perf_counter() - t)
+    (us_c, st_c, t_c), (us_h, st_h, t_h) = out[DEVICE], out["cpu"]
+    per_step = [rel_err(a, b, b.abs().max()) for a, b in zip(us_c, us_h)]
+    rel = [s["res"] / s["res0"] for s in st_c + st_h]
+    newton = ([s["newton"] for s in st_c], [s["newton"] for s in st_h])
+    every_step = max(per_step) <= MIXED_CPU_TOL
+    ok = per_step[-1] <= MIXED_CPU_TOL and newton[0] == newton[1] and max(rel) <= OGDEN_STRICT["rtol"]
+    log(f"[ogden-cpu] composite {OGDEN_CPU_CFG}, {OGDEN_CPU_STEPS} steps each solved to rtol "
+        f"{OGDEN_STRICT['rtol']:g} ({OGDEN_STRICT['n_newton']} Newton x {OGDEN_STRICT['n_cg']} CG, cg_rtol "
+        f"{OGDEN_STRICT['cg_rtol']:g}): card {t_c:.2f}s newton={newton[0]} cg={[s['cg'] for s in st_c]} | cpu "
+        f"{t_h:.2f}s newton={newton[1]} cg={[s['cg'] for s in st_h]} | u rel err after each step "
+        f"{' '.join(f'{e:.2e}' for e in per_step)} (tol {MIXED_CPU_TOL:g}: after every step "
+        f"{'met' if every_step else 'missed, ROADMAP Queue 3 item 4'}), max rel |R| {max(rel):.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ogden-cpu: the composite solved to rtol 1e-8: Newton counts, a residual or the last "
+                             "step's u card against CPU")
 
 
 # ------------------------------------------------------------------ phase 14
@@ -2126,7 +2191,7 @@ def phase_blocked():
     the main plate's width through the fused blocked step, its launches,
     times and device-busy share, and at 64 x 32 against the host LU solve
     on the card and against the CPU. Returns the K1/K3/K4 launches of (a)'s card solve and
-    (c)'s timed step."""
+    (c)'s timed step, and (c)'s 64 x 32 card run ([dist] (c)'s reference)."""
     from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
     from dolfinx_materials_tpu_torch.parallel import blocked as blocked_mod
@@ -2325,7 +2390,148 @@ def phase_blocked():
                              "did not all launch")
 
     log(f"[blocked] {time.perf_counter() - t0:.1f}s")
-    return {k: demo_counts[k] + full_counts[k] for k in full_counts}
+    return {k: demo_counts[k] + full_counts[k] for k in full_counts}, {k: v for k, v in c.items() if k != "b"}
+
+
+# ------------------------------------------------------------------ phase 20
+#: [dist]: (a) one NCCL rank through the process group at [fused]'s width
+#: and first load; (b) two ranks sharing the card over gloo on
+#: [fused-bench]'s 64 x 64 P1 plate (6 Newton x 30 CG, two-level), both dof
+#: layouts, its map on the banded route (K3/K4), each step timed as the
+#: second of two calls; (c) the fused blocked
+#: step over the same two ranks at [blocked]'s 64 x 32. (b) and (c) against
+#: the one-rank card runs by [blocked]'s rule: u (z) and p to 1e-8 of their
+#: largest entry, equal Newton counts, Krylov counts within 5 %
+DIST_TIMEOUT = 400  # seconds a launch may take
+DIST_TOL, DIST_CG_SPREAD = 1e-8, 0.05
+DIST_BENCH = dict(N=FUSED_BENCH_NX, hardening="voce", load=2.0, layouts="replicated,sharded", n_newton=6, n_cg=30,
+                  banded=True, reps=1)
+DIST_KERNELS = ("j2_radial_return", "banded_take_ell", "banded_take_csr")
+
+
+def dist_worker(argv):
+    """[dist] (a), one rank of ``python3 chip_smoke.py --dist-worker OUT nx
+    pid nproc coordinator``: [fused]'s plate at ``nx`` and its first load
+    from the lifted start with [fused]'s options, through the process
+    group's mesh (NCCL), called twice; writes u, p, counts, seconds and the
+    first call's launches, derived as [fused] derives them, to OUT."""
+    import torch.distributed as dist
+
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+    from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
+
+    out, nx, pid, nproc, coord = argv
+    device = mp.initialize(int(pid), int(nproc), coord)
+    problem, qmap, bc_top, _ = build_plate(int(nx), device)
+    ndofs = problem.u.space.num_dofs
+    step, pad = make_sharded_newton_step_general(
+        problem, device_mesh(int(nproc)), n_newton=FUSED_NEWTON, n_cg=FUSED_CG, cg_rtol=FUSED_CG_RTOL,
+        pc="two_level", pc_boxes=FUSED_BOXES, return_info="stats")
+    bc_top.set(GENERIC_LOADS[0])
+    mask, vals = combine_bcs(problem.bcs, ndofs)
+    y = torch.as_tensor(problem.u.space.node_coords[:, 1], device=device)
+    u0 = lifted(torch.zeros(ndofs, dtype=torch.float64, device=device), GENERIC_LOADS[0], y)
+    states = pad([qmap.material.data_manager.s0.internal])
+    walls = []
+    for _ in range(2):  # the first call (the CG graph's capture) and a second one
+        reset_counts()
+        before = graph_snapshot(step.cg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        u, st, rn, rn0, (nn, ncg) = step(u0, states, mask, vals, 0.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if len(walls) == 1:
+            counts, factors = fused_launches(step.cg, before, read_counts())
+    if int(pid) == 0:
+        np.savez(out, u=u.cpu().numpy(), p=st[0]["p"].reshape(-1).cpu().numpy(), newton=nn, cg=ncg,
+                 walls=np.asarray(walls), graphs=len(step.cg._graphs), graph=bool(step.cg.graph),
+                 **{f"launches_{k}": v for k, v in counts.items()})
+    print(f"[dist] rank {pid}: newton={nn} cg={ncg} |R|={float(rn):.4e} launches {counts} ({factors})", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(nx, fused_first, blocked_ref):
+    """[dist]: the multi-rank layer on the card (the constants above).
+    Returns the K1/K3/K4 launches of its ranks, summed."""
+    from dolfinx_materials_tpu_torch.demos import sharded_scaling
+    from dolfinx_materials_tpu_torch.parallel import device_mesh
+    from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(DIST_KERNELS, 0)
+    # (a) one NCCL rank at full width against [fused]'s first step
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "a.npz")
+        t = time.perf_counter()
+        mp.launch([sys.executable, os.path.abspath(__file__), "--dist-worker", out, str(nx)], 1, timeout=DIST_TIMEOUT)
+        s_a = time.perf_counter() - t
+        with np.load(out) as f:
+            a = dict(f)
+    ref = fused_first
+    same = (np.array_equal(a["u"], ref["u"].numpy()) and np.array_equal(a["p"], ref["p"].numpy())
+            and (int(a["newton"]), int(a["cg"])) == (ref["newton"], ref["cg"]))
+    launched = {k: int(a[f"launches_{k}"]) for k in DIST_KERNELS}
+    ok = same and all(v > 0 for v in launched.values())
+    log(f"[dist] (a) {nx}x{2 * nx} P2 plate, one NCCL rank through the process group, [fused]'s first load: "
+        f"newton={int(a['newton'])} cg={int(a['cg'])} (fused {ref['newton']}/{ref['cg']}); u, p and counts "
+        f"bitwise equal to [fused]'s first step={same}; step {1e3 * a['walls'][0]:.1f} ms first call, "
+        f"{1e3 * a['walls'][1]:.1f} ms second ([fused]'s first step {1e3 * ref['s']:.1f} ms); CG graph "
+        f"{bool(a['graph'])} ({int(a['graphs'])} captured); rank launches {launched} ([fused] {ref['counts']}); "
+        f"launch {s_a:.1f}s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[dist] (a) the one-rank group step differs from [fused]'s, or K1/K3/K4 did not launch")
+    total = {k: total[k] + v for k, v in launched.items()}
+
+    # (b) and (c): two ranks sharing the card over gloo, in one launch
+    t = time.perf_counter()
+    opts = [w for k, v in DIST_BENCH.items() if k != "banded"
+            for w in (f"--{k.replace('_', '-')}", v)] + ["--banded", "--blocked", "interface", "--device", "cuda",
+                                                       "--backend", "gloo"]
+    two = sharded_scaling.launch_worker(2, opts, timeout=DIST_TIMEOUT)
+    s_two = time.perf_counter() - t
+    one = sharded_scaling.solve_plate(device_mesh(1), argparse.Namespace(**DIST_BENCH), torch.device(DEVICE))
+    for layout in ("replicated", "sharded"):
+        u1, p1 = one[f"u_{layout}"].cpu().numpy(), one[f"p_{layout}"].cpu().numpy()
+        e_u = float(np.abs(two[f"u_{layout}"] - u1).max() / np.abs(u1).max())
+        e_p = float(np.abs(two[f"p_{layout}"] - p1).max() / np.abs(p1).max())
+        nn1, cg1 = one[f"newton_{layout}"], one[f"cg_{layout}"]
+        nn2, cg2 = int(two[f"newton_{layout}"]), int(two[f"cg_{layout}"])
+        ranks = [{k: int(two[f"rank{r}_launches_{layout}_{k}"]) for k in DIST_KERNELS} for r in (0, 1)]
+        ok = (e_u <= DIST_TOL and e_p <= DIST_TOL and nn1 == nn2 and abs(cg2 - cg1) <= DIST_CG_SPREAD * cg1
+              and all(v > 0 for r in ranks for v in r.values()) and int(two[f"replays_{layout}"]) == 0)
+        log(f"[dist] (b) {FUSED_BENCH_NX}x{FUSED_BENCH_NX} P1 J2 plate, banded route, {layout} dofs, two ranks on "
+            f"the card over gloo: newton={nn2} cg={cg2} |R|={float(two[f'res_{layout}'][0]):.4e} step "
+            f"{float(two[f'ms_{layout}']):.1f} ms | one rank newton={nn1} cg={cg1} step {one[f'ms_{layout}']:.1f} ms; "
+            f"u rel err {e_u:.2e} p rel err {e_p:.2e} (tol {DIST_TOL:g}, CG within {DIST_CG_SPREAD:.0%}); launches "
+            f"rank 0 {ranks[0]} rank 1 {ranks[1]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[dist] (b) {layout}: two ranks and one disagree, or a rank did not launch K1/K3/K4")
+        for r in ranks:
+            total = {k: total[k] + r[k] for k in total}
+    z1, p1 = blocked_ref["z"], blocked_ref["p"]
+    e_z = float(np.abs(two["z_blocked"] - z1).max() / np.abs(z1).max())
+    e_p = [float(np.abs(two[f"p{i}_blocked"] - p.reshape(-1)).max() / np.abs(p).max()) for i, p in enumerate(p1)]
+    nn1, k1 = blocked_ref["info"]["newton"], blocked_ref["info"]["bicgstab"]
+    nn2, k2 = int(two["newton_blocked"]), int(two["bicgstab_blocked"])
+    ranks = [{k: int(two[f"rank{r}_launches_blocked_{k}"]) for k in DIST_KERNELS} for r in (0, 1)]
+    ok = (e_z <= DIST_TOL and max(e_p) <= DIST_TOL and nn1 == nn2 and abs(k2 - k1) <= DIST_CG_SPREAD * k1
+          and float(two["res_blocked"][0]) <= 1e-7 * E and all(v > 0 for r in ranks for v in r.values()))
+    log(f"[dist] (c) blocked interface step {BLOCKED_CHECK_NX}x{BLOCKED_CHECK_NX // 2} P2, two ranks over gloo: "
+        f"newton={nn2} bicgstab={k2} |R|={float(two['res_blocked'][0]):.3e} step {float(two['ms_blocked']):.1f} ms | "
+        f"[blocked]'s one-device card run newton={nn1} bicgstab={k1} ({1e3 * blocked_ref['s']:.1f} ms); z rel err "
+        f"{e_z:.2e} p rel err {' '.join(f'{e:.2e}' for e in e_p)} (tol {DIST_TOL:g}, BiCGStab within "
+        f"{DIST_CG_SPREAD:.0%}); launches rank 0 {ranks[0]} rank 1 {ranks[1]}; launch of (b) and (c) {s_two:.1f}s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[dist] (c) the two-rank blocked step and the one-device run disagree, or a rank did "
+                             "not launch K1/K3/K4")
+    for r in ranks:
+        total = {k: total[k] + r[k] for k in total}
+    log(f"[dist] {time.perf_counter() - t0:.1f}s")
+    return total
 
 
 def bg_name(plan):
@@ -2361,7 +2567,7 @@ def main():
     k2 = time_j2_main(eps_point, state, behavior, factored=True)
     _, fast = phase_generic(nx_full)
     phase_fused_bench()
-    fused_counts, fused_factors = phase_fused(nx_full, fast)
+    fused_counts, fused_factors, fused_first = phase_fused(nx_full, fast)
     ogden = {"ogden_tet": phase_ogden_tet(), "ogden_hex": phase_ogden_hex(), "composite": phase_composite()}
     phase_ogden_cpu()
     demo_counts = phase_demo()
@@ -2371,7 +2577,8 @@ def main():
     log(f"[fefp] {time.perf_counter() - t_fefp:.1f}s")
     phase_crystal()
     phase_families()
-    blocked_counts = phase_blocked()
+    blocked_counts, blocked_check = phase_blocked()
+    dist_counts = phase_dist(nx_full, fused_first, blocked_check)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -2394,7 +2601,8 @@ def main():
 
         by_path = {"main": counts[name], "fused": fused_counts[name],
                    **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")},
-                   "demo": demo_counts[name], "fefp": fefp_counts[name], "blocked": blocked_counts[name]}
+                   "demo": demo_counts[name], "fefp": fefp_counts[name], "blocked": blocked_counts[name],
+                   "dist": dist_counts[name]}
         plate = times(keys)
         return {
             "name": name, "route": "cuda",
@@ -2429,7 +2637,8 @@ def main():
     kernels = [
         j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
                {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"],
-                "demo": demo_counts["j2_radial_return"], "blocked": blocked_counts["j2_radial_return"]},
+                "demo": demo_counts["j2_radial_return"], "blocked": blocked_counts["j2_radial_return"],
+                "dist": dist_counts["j2_radial_return"]},
                k1, j2_worst["full"], "full"),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
                {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"], "factored"),
@@ -2450,4 +2659,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

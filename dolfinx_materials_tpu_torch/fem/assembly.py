@@ -61,6 +61,10 @@ class QuadratureDomain:
         self.element = elem
         self.nq = elem.nq
         self.ne = len(self.cells)
+        #: the cells the gathers and the assembly run over; ``ne`` is the
+        #: cells of the element work (fewer on a :meth:`block`)
+        self.ne_all = self.ne
+        self._block, self._reduce = None, None
         self.num_points = self.ne * self.nq
         self.nloc = space.nloc
         self.ncomp = space.ncomp
@@ -88,6 +92,7 @@ class QuadratureDomain:
         self.x_q = dev(x_q)  # (ne, nq, dim)
         self._dofmap_np = np.asarray(space.dofmap[self.cells])
         self.dofmap = dev(self._dofmap_np, torch.int64)  # (ne, ndof_el)
+        self._dofmap_all = self.dofmap
         self.cell_volumes = self.wdetJ.sum(dim=1)
         self._build_gather_map()
         self._node_block_plan = None
@@ -156,10 +161,60 @@ class QuadratureDomain:
         gm = bg.gather_map(self._dofmap_np, self.space.num_dofs)
         self._gather_map = torch.as_tensor(gm, device=self.device)
 
+    # ------------------------------------------------------------ cell blocks
+    def block(self, lo, hi, reduce=None):
+        """This domain with its element work on cells ``[lo, hi)`` only (the
+        cells from ``ne`` on are padding: zero geometry and weight, dof 0),
+        its gathers and its assembly still over every cell: :meth:`gather`
+        cuts the block out of the full gather, and the assembly puts the
+        block's element values among zeros over every cell, applies
+        ``reduce`` to that array (the sum across the ranks that own the other
+        blocks: exact, a cell's values are one rank's) and assembles it in
+        full. A shallow copy sharing the plans."""
+        dom = copy.copy(self)
+        dom._block, dom._reduce = (int(lo), int(hi)), reduce
+        dom.ne = int(hi) - int(lo)
+        dom.num_points = dom.ne * self.nq
+        for name in ("dNdx", "wdetJ", "x_q", "cell_volumes", "dofmap"):
+            setattr(dom, name, dom._cut(getattr(self, name)))
+        return dom
+
+    def _cut(self, t, dim=0):
+        """The block's rows (along ``dim``) of a tensor over every cell,
+        zero rows for padding cells; ``t`` itself outside a block."""
+        if self._block is None:
+            return t
+        lo, hi = self._block
+        if lo == 0 and hi == self.ne_all:
+            return t
+        real = max(0, min(hi, self.ne_all) - lo)
+        part = t.narrow(dim, min(lo, self.ne_all), real)
+        if real == hi - lo:
+            return part
+        shape = list(t.shape)
+        shape[dim] = hi - lo - real
+        return torch.cat([part, t.new_zeros(shape)], dim=dim)
+
+    def _paste(self, t, dim=0):
+        """The block's rows (along ``dim``) among zeros over every cell,
+        through ``reduce``; ``t`` itself outside a block."""
+        if self._block is None:
+            return t
+        lo, hi = self._block
+        if lo != 0 or hi != self.ne_all:
+            real = max(0, min(hi, self.ne_all) - lo)
+            shape = list(t.shape)
+            shape[dim] = self.ne_all
+            out = t.new_zeros(shape)
+            out.narrow(dim, min(lo, self.ne_all), real).copy_(t.narrow(dim, 0, real))
+            t = out
+        return t if self._reduce is None else self._reduce(t)
+
     # ------------------------------------------------------- gather/assembly
     def scatter_dofs(self, vals_e):
         """Sum element-local values (ne, ndof_el) into a global (ndofs,) vector."""
         nc = self.ncomp
+        vals_e = self._paste(vals_e)
         if self._stencil is not None and len(self._stencil) == 2:
             nx, ny = self._stencil
             vals = vals_e.reshape(nx, ny, self.nloc, nc)
@@ -182,23 +237,26 @@ class QuadratureDomain:
 
     def gather(self, u):
         """u (ndofs,) -> element dofs (ne, ndof_el)."""
+        return self._cut(self._gather_all(u))
+
+    def _gather_all(self, u):
         nc = self.ncomp
         if self._stencil is not None and len(self._stencil) == 2:
             nx, ny = self._stencil
             u2 = u.reshape(nx + 1, ny + 1, nc)
-            parts = [u2[di : di + nx, dj : dj + ny].reshape(self.ne, nc) for (di, dj) in self._CORNERS_2D]
+            parts = [u2[di : di + nx, dj : dj + ny].reshape(self.ne_all, nc) for (di, dj) in self._CORNERS_2D]
             return torch.cat(parts, dim=1)
         if self._stencil is not None:
             nx, ny, nz = self._stencil
             u3 = u.reshape(nx + 1, ny + 1, nz + 1, nc)
             parts = [
-                u3[di : di + nx, dj : dj + ny, dk : dk + nz].reshape(self.ne, nc)
+                u3[di : di + nx, dj : dj + ny, dk : dk + nz].reshape(self.ne_all, nc)
                 for (di, dj, dk) in self._CORNERS_3D
             ]
             return torch.cat(parts, dim=1)
         if self.banded_active:
-            return self._banded_take("cell", u).reshape(self.ne, self.ndof_el)
-        return u[self.dofmap]
+            return self._banded_take("cell", u).reshape(self.ne_all, self.ndof_el)
+        return u[self._dofmap_all]
 
     def _cell_eval(self, expr, u_e, dNdx_c, x_c):
         """expr at all qps of one cell given its element dofs (ndof_el,)."""
@@ -316,15 +374,15 @@ class QuadratureDomain:
         nd = self.ndof_el
         if isinstance(K_e, tuple) and K_e[0] == "bdfm":
             # banded: feature-major gather -> per-row products -> assembly take
-            u = self._banded_take("fm", v).reshape(nd, self.ne)
+            u = self._cut(self._banded_take("fm", v).reshape(nd, self.ne_all), 1)
             y = torch.einsum("ije,je->ie", K_e[1].reshape(nd, nd, self.ne), u)
-            return self._banded_take("asm", y.reshape(-1))
+            return self._banded_take("asm", self._paste(y, 1).reshape(-1))
         if isinstance(K_e, tuple) and K_e[0] == "fm":
-            vr = torch.stack(self._gather_rows(v))  # (nd, ne)
+            vr = self._cut(torch.stack(self._gather_rows(v)), 1)  # (nd, ne)
             y = torch.einsum("ije,je->ie", K_e[1].reshape(nd, nd, self.ne), vr)
-            return self._scatter_rows(y, v.dtype)
-        v_e = self._banded_take("cell", v).reshape(self.ne, nd) if self.banded_active else v[self.dofmap]
-        return self.scatter_dofs(torch.einsum("eij,ej->ei", K_e, v_e))
+            return self._scatter_rows(self._paste(y, 1), v.dtype)
+        v_e = self._banded_take("cell", v).reshape(self.ne_all, nd) if self.banded_active else v[self._dofmap_all]
+        return self.scatter_dofs(torch.einsum("eij,ej->ei", K_e, self._cut(v_e)))
 
     def _gather_rows(self, u):
         """Stencil gather as a list of (ne,) rows (feature-major)."""
@@ -333,14 +391,14 @@ class QuadratureDomain:
             nx, ny = self._stencil
             u2 = u.reshape(nx + 1, ny + 1, nc)
             return [
-                u2[di : di + nx, dj : dj + ny, c].reshape(self.ne)
+                u2[di : di + nx, dj : dj + ny, c].reshape(self.ne_all)
                 for (di, dj) in self._CORNERS_2D
                 for c in range(nc)
             ]
         nx, ny, nz = self._stencil
         u3 = u.reshape(nx + 1, ny + 1, nz + 1, nc)
         return [
-            u3[di : di + nx, dj : dj + ny, dk : dk + nz, c].reshape(self.ne)
+            u3[di : di + nx, dj : dj + ny, dk : dk + nz, c].reshape(self.ne_all)
             for (di, dj, dk) in self._CORNERS_3D
             for c in range(nc)
         ]
@@ -372,7 +430,7 @@ class QuadratureDomain:
             target = nodes[:, :, None, None] * nc * nc + np.arange(nc * nc).reshape(1, 1, nc, nc)
             plan = self._node_block_plan = bg.plan_fixed_sum(target, nnodes * nc * nc, device=self.device)
         diagb = torch.einsum("eiaib->eiab", K_e.reshape(self.ne, self.nloc, nc, self.nloc, nc))
-        return bg.fixed_sum(diagb.reshape(-1), plan).reshape(nnodes, nc, nc)
+        return bg.fixed_sum(self._paste(diagb).reshape(-1), plan).reshape(nnodes, nc, nc)
 
     def variant(self, dtype=None, stencil=True, banded=True):
         """This domain in another dtype, or without its stencil or banded

@@ -1,11 +1,17 @@
 """The fused Newton load step of blocked (monolithic multi-field) problems,
-on one card: :func:`make_sharded_blocked_step`.
+on one card or over the ranks of a process group:
+:func:`make_sharded_blocked_step`.
 
 Counterpart of dolfinx_materials_tpu/parallel/blocked.py. There the step is
 one XLA program with cells and interface facets sharded over a mesh of
 devices and every partial sum ``psum``'d; here it is one Newton loop driven
-from the host on the card that holds the problem, with the same arithmetic
-(on one device the collectives are the identity).
+from the host on each rank's card, with the same arithmetic. Over N ranks
+each map's cells are split as in :mod:`.sharding` (the gathers and the
+assembly over the whole mesh, the element work on the rank's block, its
+element values summed across ranks before the assembly), so the residual,
+the coarse matrix, the diagonal, the smoother's node blocks and the matvec
+are the one-device step's to the bit; the iterate z stays whole on every
+rank, and every rank runs the interface facets (few) in full.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from ..ops.banded_gather import fixed_sum, gather_map, plan_fixed_sum
 from ..solvers import blocked_apply, blocked_diagonal
 from .coarse import _coord_agg_cdofs
 from .krylov import _pbicgstab, _sym_block_inv
-from .sharding import _canonical, _mesh_device, _Term
+from .sharding import _canonical, _mesh_device, _Ranks, _rows, _Term
 
 
 def _norm(v):
@@ -28,19 +34,27 @@ class _BlockedTerm(_Term):
     """One (field, qmap) of the blocked problem: the general step's term,
     plus the couplings whose row map it is (their ESV values come from the
     col field, their blocks K_rc from the row term's test operator and the
-    col expression's trial operator)."""
+    col expression's trial operator), per working dtype."""
 
-    def __init__(self, t, field, prob, couplings, use_banded, dtype, device):
+    def __init__(self, t, field, prob, couplings, use_banded, dtypes, device, ranks):
         qmap = t["qmap"]
         mine = [c for c in couplings if c["qmap"] is qmap]
-        super().__init__(t, True, use_banded, [dtype], device, coupled={c["x"] for c in mine})
+        super().__init__(t, True, use_banded, dtypes, device, coupled={c["x"] for c in mine}, ranks=ranks)
         self.field = field
         self.sc = [prob._scale_value(s) for s in t["scales"]]
+        self.wdetJ = {dt: self.dom.wdetJ.to(dt) for dt in dtypes}
         self.coups = []
         for c in mine:
             k = t["field_names"].index(c["y"])
-            self.coups.append(dict(c, k_term=k, B_y=self.dom.make_B(t["exprs"][k]),
-                                   slice=qmap._block_slices[(c["y"], c["x"])], col_dofmap=c["col_dom"].dofmap))
+            col = c["col_dom"]
+            if self.dom._block is not None:
+                col = col.block(self.lo, self.hi, self.dom._reduce)
+            dts = {dt: (self.dom.variant(dtype=dt), col.variant(dtype=dt)) for dt in dtypes}
+            self.coups.append(dict(
+                c, k_term=k, slice=qmap._block_slices[(c["y"], c["x"])], col_dofmap=col.dofmap,
+                B_y={dt: d.make_B(t["exprs"][k]) for dt, (d, _) in dts.items()},
+                B_x={dt: cd.make_B(c["x_expr_fn"]) for dt, (_, cd) in dts.items()},
+                eval_x={dt: cd.make_eval(c["x_expr_fn"]) for dt, (_, cd) in dts.items()}))
 
 
 def make_sharded_blocked_step(
@@ -75,7 +89,11 @@ def make_sharded_blocked_step(
     is present) or the scalar diagonal (``"jacobi"``).
 
     As in the JAX step, the problems' external forces are not applied: the
-    load comes through ``bc_vals``.
+    load comes through ``bc_vals``; the step runs in the dtype of ``z``
+    (float32 inputs to a float64 problem run the whole step in float32).
+    Over a process group's mesh each rank runs the element work of its
+    block of cells, and z, the states and the bc arrays go in and come out
+    whole on every rank (:mod:`.sharding`'s contract).
 
     Returns ``(step, pad_states)`` with ``step(z, states, bc_mask, bc_vals,
     dt=0.0) -> (z_new, states, |R|)``; ``states`` is the flat list of
@@ -87,6 +105,7 @@ def make_sharded_blocked_step(
     dev = _mesh_device(mesh, axis)
     if _canonical(blocked.device) != dev:
         raise ValueError(f"problem on {blocked.device}, mesh on {dev}")
+    ranks = _Ranks(mesh)
     if smoother not in (None, "jacobi", "block"):
         raise ValueError(f"smoother must be None, 'jacobi' or 'block', got {smoother!r}")
     if pc not in ("jacobi", "two_level"):
@@ -104,10 +123,11 @@ def make_sharded_blocked_step(
     default_sm = "block" if any(nc >= 3 for nc in field_ncomp) else "jacobi"
     use_block = (smoother or default_sm) == "block" and any(nc > 1 for nc in field_ncomp)
 
-    terms = [_BlockedTerm(t, fi, p, blocked._couplings, use_banded, dtype, device)
+    dtypes = sorted({dtype, torch.float32}, key=str)
+    terms = [_BlockedTerm(t, fi, p, blocked._couplings, use_banded, dtypes, device, ranks)
              for fi, p in enumerate(problems) for t in p._terms]
+    # the facets' index tables and plans (the same in every dtype)
     itfs = [(itf, itf.domain.tensors(device, dtype)) for itf in blocked.interfaces]
-    zero = torch.zeros((), dtype=dtype, device=device)
 
     def split(v):
         return [v[offsets[i]: offsets[i] + sizes[i]] for i in range(nfields)]
@@ -157,31 +177,34 @@ def make_sharded_blocked_step(
             ])
 
     # ---- evaluations ------------------------------------------------------
-    def coupled_values(term, parts):
-        return {c["x"]: c["eval_x"](parts[c["col"]]) for c in term.coups}
+    def coupled_values(term, parts, wd):
+        return {c["x"]: c["eval_x"][wd](parts[c["col"]]) for c in term.coups}
 
     def masked_residual(R, parts, mask):
-        """The per-field residuals ``R`` plus every interface's, concatenated,
-        Dirichlet rows zeroed."""
+        """The per-field residuals ``R`` plus every interface's,
+        concatenated, Dirichlet rows zeroed."""
         for itf, _ in itfs:
             r_i, r_j = itf.residuals(parts[itf.i], parts[itf.j], sizes[itf.i], sizes[itf.j])
             R[itf.i] = R[itf.i] + r_i
             R[itf.j] = R[itf.j] + r_j
-        return torch.where(mask, zero, torch.cat(R))
+        R = torch.cat(R)
+        return torch.where(mask, torch.zeros_like(R), R)
 
     def evaluate(z, states, tdt, mask):
-        """``(R, diag_Ks, coup_Ks, itf_Ks, new_states)`` at z: the full
+        """``(R, diag_Ks, coup_Ks, itf_Ks, new_states)`` at z: the
         constitutive update, the masked residual, each term's element
-        matrices and coupling blocks, each interface's base block."""
+        matrices and coupling blocks, each interface's base block, in z's
+        dtype."""
+        wd = z.dtype
         parts = split(z)
-        R = [torch.zeros(n, dtype=dtype, device=device) for n in sizes]
+        R = [torch.zeros(n, dtype=wd, device=device) for n in sizes]
         diag_Ks, coup_Ks, new_states = [], [], []
         for term, st in zip(terms, states):
             u_i = parts[term.field]
-            flux, Ct, st_new = term.integrate(term.inputs(u_i, dtype, coupled_values(term, parts)), st, dtype,
+            flux, Ct, st_new = term.integrate(term.inputs(u_i, wd, coupled_values(term, parts, wd)), st, wd,
                                               tdt, False)
             flds = term.fields(flux, st_new, term.sc)
-            fns = term.fns[dtype]
+            fns = term.fns[wd]
             R[term.field] = R[term.field] + fns["residual"](u_i, flds)
             n = flux.shape[0]
             Cs = [term.sc[k] * Ct[:, sl].reshape(n, sy, sx) for (k, sl, sy, sx) in term.tstruct]
@@ -190,10 +213,10 @@ def make_sharded_blocked_step(
             for c in term.coups:
                 sl, sy, sx = c["slice"]
                 C = Ct[:, sl].reshape(term.ne, -1, sy, sx)
-                By = c["B_y"](u_i)
-                Bx = c["B_x"](parts[c["col"]])
+                By = c["B_y"][wd](u_i)
+                Bx = c["B_x"][wd](parts[c["col"]])
                 Krc.append((c["scale"] * term.sc[c["k_term"]])
-                           * torch.einsum("eqai,eqab,eqbj,eq->eij", By, C, Bx, term.dom.wdetJ))
+                           * torch.einsum("eqai,eqab,eqbj,eq->eij", By, C, Bx, term.wdetJ[wd]))
             coup_Ks.append(Krc)
             new_states.append(st_new)
         R = masked_residual(R, parts, mask)
@@ -202,27 +225,29 @@ def make_sharded_blocked_step(
 
     def residual_norm(z, states, tdt, mask):
         """|R| from flux-only updates (the line-search trials), on the host."""
+        wd = z.dtype
         parts = split(z)
-        R = [torch.zeros(n, dtype=dtype, device=device) for n in sizes]
+        R = [torch.zeros(n, dtype=wd, device=device) for n in sizes]
         for term, st in zip(terms, states):
             u_i = parts[term.field]
-            flux, _, st_new = term.integrate(term.inputs(u_i, dtype, coupled_values(term, parts)), st, dtype,
+            flux, _, st_new = term.integrate(term.inputs(u_i, wd, coupled_values(term, parts, wd)), st, wd,
                                              tdt, True)
-            R[term.field] = R[term.field] + term.fns[dtype]["residual"](u_i, term.fields(flux, st_new, term.sc))
+            R[term.field] = R[term.field] + term.fns[wd]["residual"](u_i, term.fields(flux, st_new, term.sc))
         return float(_norm(masked_residual(R, parts, mask)))
 
     def build_coarse(diag_Ks, coup_Ks, itf_Ks, mask):
         """The inverse of the monolithic coarse operator P^T K P (Dirichlet
         rows and columns zeroed, a ridge on its diagonal), frozen for the
         step."""
-        w = split((~mask).to(dtype))
+        wd = diag_Ks[0].dtype
+        w = split((~mask).to(wd))
         vals = []
         for term, K, Krc in zip(terms, diag_Ks, coup_Ks):
             w_r = w[term.field][term.dofmap]
-            vals.append((K * w_r[:, :, None] * w_r[:, None, :]).reshape(-1))
+            vals.append(term.dom._paste(K * w_r[:, :, None] * w_r[:, None, :]).reshape(-1))
             for c, Kc in zip(term.coups, Krc):
                 w_c = w[c["col"]][c["col_dofmap"]]
-                vals.append((Kc * w_r[:, :, None] * w_c[:, None, :]).reshape(-1))
+                vals.append(term.dom._paste(Kc * w_r[:, :, None] * w_c[:, None, :]).reshape(-1))
         for (itf, t), base in zip(itfs, itf_Ks):
             w1, w2 = w[itf.i][t["dofs1"]], w[itf.j][t["dofs2"]]
             for wa, wb, sgn in ((w1, w1, 1.0), (w2, w2, 1.0), (w1, w2, -1.0), (w2, w1, -1.0)):
@@ -230,10 +255,11 @@ def make_sharded_blocked_step(
         Ac = fixed_sum(torch.cat(vals), coarse_plan).reshape(ncoarse, ncoarse)
         dAc = torch.diagonal(Ac)
         ridge = 1e-8 * dAc.abs().max() + 1e-30
-        Ac = Ac + (ridge + (dAc.abs() < ridge).to(dtype)) * torch.eye(ncoarse, dtype=dtype, device=device)
+        Ac = Ac + (ridge + (dAc.abs() < ridge).to(wd)) * torch.eye(ncoarse, dtype=wd, device=device)
         return torch.linalg.inv(Ac)
 
     def coarse_correct(Ac_inv, r, mask):
+        zero = r.new_zeros(())
         r0 = torch.where(mask, zero, r)
         rc = torch.cat([r0, r0.new_zeros(1)])[restrict_map].sum(dim=1)
         return torch.where(mask, zero, (Ac_inv @ rc)[cdof_t])
@@ -242,8 +268,9 @@ def make_sharded_blocked_step(
         """The first-level smoother: per-field node-block Jacobi on vector
         fields (with ``use_block``), else the scalar diagonal (interface
         entries included, unit on bc rows)."""
+        wd = diag_Ks[0].dtype
         diag = blocked_diagonal(mask, sizes, [(term.field, term.dom, K) for term, K in zip(terms, diag_Ks)],
-                                interface_blocks(itf_Ks), dtype, device)
+                                interface_blocks(itf_Ks), wd, device)
         if not use_block:
             return lambda r: r / diag
         mask_f, diag_f = split(mask), split(diag)
@@ -253,7 +280,7 @@ def make_sharded_blocked_step(
             if nc <= 1:
                 continue
             nnodes = sizes[fi] // nc
-            Bm = torch.zeros((nnodes, nc, nc), dtype=dtype, device=device)
+            Bm = torch.zeros((nnodes, nc, nc), dtype=wd, device=device)
             for term, K in zip(terms, diag_Ks):
                 if term.field == fi:
                     Bm = Bm + term.dom.matrix_node_blocks(K, nnodes)
@@ -266,9 +293,9 @@ def make_sharded_blocked_step(
                     Bm = Bm + fixed_sum(nb, plans[0]).reshape(nnodes, nc, nc)
                 if itf.j == fi:
                     Bm = Bm + fixed_sum(nb, plans[1]).reshape(nnodes, nc, nc)
-            mb = mask_f[fi].reshape(-1, nc).to(dtype)
+            mb = mask_f[fi].reshape(-1, nc).to(wd)
             keep = 1.0 - mb
-            eye = torch.eye(nc, dtype=dtype, device=device)
+            eye = torch.eye(nc, dtype=wd, device=device)
             Bm = Bm * keep[:, :, None] * keep[:, None, :] + eye * mb[:, :, None]
             tr = torch.einsum("naa->n", Bm.abs())
             Bm = Bm + eye * torch.where(tr < 1e-30, torch.ones_like(tr), 1e-14 * tr)[:, None, None]
@@ -307,7 +334,7 @@ def make_sharded_blocked_step(
         else:
             def M(v):
                 return smooth(v) + coarse_correct(Ac_inv, v, mask)
-        b = torch.where(mask, zero, -R)
+        b = torch.where(mask, torch.zeros_like(R), -R)
         du, its = _pbicgstab(operator(diag_Ks, coup_Ks, itf_Ks, mask), b, M, maxiter=n_cg, tol=cg_rtol)
         du = torch.where(torch.isfinite(du), du, torch.zeros_like(du))
         alpha, k = 1.0, 0
@@ -321,25 +348,30 @@ def make_sharded_blocked_step(
         return z, its
 
     # ---- states ------------------------------------------------------------
-    def pad_states(states):
-        """The states on the card in the problem's dtype (on one device no
-        padding is needed: the JAX step pads cells to a multiple of the
-        device count)."""
+    def pad_states(states, wd=dtype):
+        """Each map's states on the card in ``wd`` over every rank's points:
+        the real points, then the behavior's initial state on the padding
+        cells' points."""
         out = []
-        for st in states:
+        for term, st in zip(terms, states):
             leaves = {}
             for k, v in st.items():
                 a = torch.as_tensor(v, device=device)
-                leaves[k] = a.to(dtype) if a.is_floating_point() else a
+                a = a.to(wd) if a.is_floating_point() else a
+                fill = torch.as_tensor(np.asarray(term.init_tpl[k]), dtype=a.dtype, device=device)
+                leaves[k] = _rows(a, 0, term.npts_pad, fill)
             out.append(leaves)
         return out
 
     def step(z, states, bc_mask, bc_vals, dt=0.0):
+        z = torch.as_tensor(z, device=device)
+        wd = torch.float32 if z.dtype == torch.float32 else dtype
         mask = torch.as_tensor(np.asarray(bc_mask) if not torch.is_tensor(bc_mask) else bc_mask,
                                device=device).to(torch.bool)
-        vals = torch.as_tensor(bc_vals, device=device).to(dtype)
-        z = torch.where(mask, vals, torch.as_tensor(z, device=device).to(dtype))
-        states = pad_states(states)
+        vals = torch.as_tensor(bc_vals, device=device).to(wd)
+        z = torch.where(mask, vals, z.to(wd))
+        states = [{k: v[term.pts[0]: term.pts[1]] for k, v in st.items()}
+                  for term, st in zip(terms, pad_states(states, wd))]
         tdt = float(dt)
         R, dK, cK, iK, st_out = evaluate(z, states, tdt, mask)
         res_t = _norm(R)
@@ -358,6 +390,8 @@ def make_sharded_blocked_step(
             history.append(res)
         step.info = dict(newton=n_it, bicgstab=sum(its), bicgstab_per_newton=its, residuals=history,
                          tolerance=rtol * res0 + atol)
+        st_out = [{k: ranks.join(v, term.pts[0], term.npts_pad)[: term.npts] for k, v in st.items()}
+                  for term, st in zip(terms, st_out)]
         return z, st_out, res_t
 
     step.info = {}

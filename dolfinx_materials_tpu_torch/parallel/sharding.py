@@ -1,10 +1,11 @@
-"""The fused Newton load step and the batched constitutive update, on one card.
+"""The fused Newton load step and the batched constitutive update, on one
+card or over the ranks of a process group.
 
 Counterparts of dolfinx_materials_tpu/parallel/sharding.py. There a load step
 is one XLA program over a mesh of devices: gathers, constitutive update,
 element residuals and matrices, an early-exit CG whose every iteration stays
 on the device, a backtracking line search, all inside ``lax.while_loop``s.
-Here it runs on the one card that holds the problem:
+Here each rank runs it on its own card:
 
 - the element-level work is the port's own ``fem/assembly.py``
   (``QuadratureDomain``'s evaluation, residual, element-matrix and SpMV
@@ -19,9 +20,22 @@ Here it runs on the one card that holds the problem:
 - Newton and the line search stay on the host: one read of the residual
   norm per Newton iteration and one per trial.
 
-A mesh of more than one device is not ported (ROADMAP.md Queue 1 item 8,
-``torch.distributed``); on one device the collectives of the JAX step are
-the identity, so ``shard_dofs`` and tuple axes give its one-device results.
+A mesh of more than one device is the ranks of a ``torch.distributed``
+process group (:mod:`.multiprocess`), one device a rank, and the partition
+is the JAX step's: each map's cells are padded to a multiple of the rank
+count and rank r owns the r-th contiguous block of them and of their Gauss
+points. Every rank runs the gathers and the assembly over the whole mesh
+(the redundant-full pattern); the element work (constitutive update,
+element residuals and matrices) runs on its block only. Where the JAX step
+assembles its block's values and sums the assembled partial vectors
+(``psum``), each rank here puts its block's element values among zeros over
+every cell, sums that array across ranks with ``all_reduce`` (exact: a
+cell's values are one rank's) and assembles it in full, so the assembled
+vectors, the coarse matrix and the preconditioner are the one-device
+step's to the bit at any rank count, and the Krylov counts with them.
+With ``shard_dofs`` the dof vectors are split over the ranks as well (an
+all-gather before the gathers, a summed dot product), the all-gather built
+on ``all_reduce`` of each rank's slice among zeros.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..fem.forms import mixed_tangent_dtype
@@ -45,19 +60,18 @@ from .krylov import _sym_block_inv
 #: time; a longer block reads the flag less often
 CG_BLOCK = 16
 
-_MULTI = (
-    "a mesh of more than one device is not ported: ROADMAP.md Queue 1 item 8 "
-    "(torch.distributed)"
-)
-
 
 @dataclass
 class DeviceMesh:
     """The device(s) a fused step runs on: ``devices`` shaped by the axis
-    sizes, ``axis_names`` in order."""
+    sizes, ``axis_names`` in order; over a process group, rank r's device at
+    the row-major position r, ``group`` the group and ``rank`` this
+    process's rank."""
 
     devices: np.ndarray
     axis_names: tuple
+    group: object = None
+    rank: int = 0
 
     @property
     def shape(self) -> dict:
@@ -69,7 +83,8 @@ class DeviceMesh:
 
     @property
     def device(self) -> torch.device:
-        return self.devices.flat[0]
+        """This rank's device."""
+        return self.devices.flat[self.rank]
 
 
 def _canonical(device) -> torch.device:
@@ -79,37 +94,103 @@ def _canonical(device) -> torch.device:
     return dev
 
 
+def _in_group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def device_mesh(n_devices=None, axis="cells", devices=None) -> DeviceMesh:
-    """A mesh of one device: by default the current CUDA device (raising
+    """The mesh a fused step runs on. ``axis`` may be a tuple of names with
+    ``n_devices`` a tuple of sizes, outer axis first.
+
+    Inside a process group (:func:`.multiprocess.initialize` in every rank)
+    a mesh of as many devices as the group has ranks is the group's
+    (:func:`.multiprocess.global_device_mesh`), one device a rank. Otherwise
+    it is a mesh of one device: by default the current CUDA device (raising
     without a card, as :func:`~dolfinx_materials_tpu_torch.resolve_device`
-    does); ``devices`` names it otherwise (``devices=["cpu"]``). ``axis`` may
-    be a tuple of names with ``n_devices`` a tuple of sizes. More than one
-    device raises ``NotImplementedError``."""
-    if devices is None:
-        devices = [_canonical(resolve_device(None))]
-    devices = [_canonical(d) for d in devices]
+    does); ``devices`` names it otherwise (``devices=["cpu"]``). More
+    devices outside a group of that size raise ``RuntimeError``."""
     if isinstance(axis, (tuple, list)):
         sizes = tuple(int(s) for s in (n_devices or (1,) * len(axis)))
         names = tuple(axis)
     else:
         sizes = (1 if n_devices is None else int(n_devices),)
         names = (axis,)
-    if int(np.prod(sizes)) != 1 or len(sizes) != len(names):
-        raise NotImplementedError(_MULTI)
+    if len(sizes) != len(names):
+        raise ValueError(f"mesh sizes {sizes} do not match its axes {names}")
+    n = int(np.prod(sizes))
+    if devices is None and _in_group() and n == dist.get_world_size():
+        from .multiprocess import global_device_mesh
+
+        return global_device_mesh(names, sizes)
+    if n != 1:
+        raise RuntimeError(
+            f"a mesh of {n} devices runs one rank a device: call parallel.multiprocess.initialize in each of "
+            f"{n} processes, then device_mesh({n_devices!r}) without `devices`")
+    if devices is None:
+        devices = [_canonical(resolve_device(None))]
     arr = np.empty(1, dtype=object)
-    arr[0] = devices[0]
+    arr[0] = _canonical(devices[0])
     return DeviceMesh(arr.reshape(sizes), names)
 
 
 def _mesh_device(mesh: DeviceMesh, axis) -> torch.device:
-    """The mesh's one device, after checking ``axis`` names its axes."""
+    """This rank's device of the mesh, after checking ``axis`` names the
+    mesh's axes."""
     names = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
     missing = [a for a in names if a not in mesh.axis_names]
     if missing:
         raise ValueError(f"axis {missing} not in the mesh's axes {mesh.axis_names}")
-    if mesh.size != 1:
-        raise NotImplementedError(_MULTI)
+    if mesh.group is None and mesh.size != 1:
+        raise ValueError("a mesh of more than one device needs its process group")
     return mesh.device
+
+
+class _Ranks:
+    """A step's share of its mesh: this rank, the rank count, the blocks of
+    rows each rank owns and the sums across ranks (``all_reduce``; on a
+    mesh without a group, one rank and no collective)."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.group, self.rank = mesh.group, int(mesh.rank)
+        self.n = mesh.size if mesh.group is not None else 1
+
+    def block(self, n):
+        """Rows ``[lo, hi)`` of this rank over ``n`` rows padded to a
+        multiple of the rank count."""
+        loc = -(-int(n) // self.n)
+        return self.rank * loc, (self.rank + 1) * loc
+
+    def sum(self, t):
+        """``t`` summed over the ranks (a new tensor; ``t`` itself without
+        a group)."""
+        if self.group is None:
+            return t
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def join(self, t, lo, n_all):
+        """The ranks' row blocks joined: ``t`` holds this rank's rows from
+        ``lo`` of ``n_all``; the rows of other ranks are theirs (exact: each
+        row is summed with zeros)."""
+        if self.group is None and lo == 0 and t.shape[0] == n_all:
+            return t
+        out = t.new_zeros((n_all,) + tuple(t.shape[1:]))
+        out[lo: lo + t.shape[0]] = t
+        return self.sum(out)
+
+
+def _rows(a, lo, hi, fill=None):
+    """Rows ``[lo, hi)`` of ``a``; rows past its end are ``fill`` (a
+    tensor of one row's shape), else its last row."""
+    if lo == 0 and hi == a.shape[0]:
+        return a
+    real = max(0, min(hi, a.shape[0]) - lo)
+    part = a[min(lo, a.shape[0]): min(lo, a.shape[0]) + real]
+    if real == hi - lo:
+        return part
+    tail = a[-1] if fill is None else fill
+    return torch.cat([part, tail.expand((hi - lo - real,) + tuple(a.shape[1:]))])
 
 
 def pad_to_multiple(arr, m, axis=0, fill=0):
@@ -130,17 +211,25 @@ def pad_to_multiple(arr, m, axis=0, fill=0):
 
 def make_sharded_constitutive_update(material, mesh: DeviceMesh, axis="cells"):
     """``update(x (n, n_inputs), state, dt) -> (flux, Ct_flat, new_state)``:
-    the material's generic per-point update (``vmap`` of its ``jacfwd``
-    point update, as the JAX kernel runs it) over the batch, on the mesh's
-    one device."""
+    the material's batched update (``vmap`` of its ``jacfwd`` point update,
+    as the JAX kernel runs it, or its fast path) over the batch. Over N
+    ranks ``n`` must be a multiple of N (:func:`pad_to_multiple`): each rank
+    updates its contiguous block of points and the outputs come back in
+    full on every rank."""
     dev = _mesh_device(mesh, axis)
     if _canonical(material.device) != dev:
         raise ValueError(f"material on {material.device}, mesh on {dev}")
+    ranks = _Ranks(mesh)
 
     def update(x, state, dt):
         x = torch.as_tensor(x, dtype=material.dtype, device=material.device)
-        state = {k: torch.as_tensor(v, device=material.device) for k, v in state.items()}
-        return material.batched_constitutive_update(x, {}, state, dt)
+        n = x.shape[0]
+        if n % ranks.n:
+            raise ValueError(f"{n} points do not split over {ranks.n} ranks: pad them (pad_to_multiple)")
+        lo, hi = ranks.block(n)
+        state = {k: torch.as_tensor(v, device=material.device)[lo:hi] for k, v in state.items()}
+        flux, Ct, st = material.batched_constitutive_update(x[lo:hi], {}, state, dt)
+        return (ranks.join(flux, lo, n), ranks.join(Ct, lo, n), {k: ranks.join(v, lo, n) for k, v in st.items()})
 
     return update
 
@@ -229,10 +318,18 @@ class MaskedCG:
     (``recorded``: wrapper name -> (calls, float32 calls)) and how often it
     was replayed (``replays``), and the launches of the replays are their
     product. With ``graph`` False, or on the CPU, the blocks run eagerly
-    (the same bits)."""
+    (the same bits).
 
-    def __init__(self, Av, M, n_cg, cg_rtol, block=CG_BLOCK, graph=True):
-        self.Av, self.M = Av, M
+    ``dot`` is the inner product (a sum across ranks where the vectors are
+    split). ``group``: the process group whose collectives ``Av``, ``M`` or
+    ``dot`` call; ``graph=None`` captures only where they can be captured
+    (no group, or NCCL's), and ``graph=True`` on another backend raises at
+    the first solve on the card."""
+
+    def __init__(self, Av, M, n_cg, cg_rtol, block=CG_BLOCK, graph=None, dot=torch.dot, group=None):
+        self.Av, self.M, self.dot, self.group = Av, M, dot, group
+        if graph is None:
+            graph = group is None or dist.get_backend(group) == "nccl"
         self.n_cg, self.cg_rtol, self.block, self.graph = int(n_cg), float(cg_rtol), int(block), graph
         self._graphs = {}
         #: blocks run by the last solve
@@ -246,12 +343,12 @@ class MaskedCG:
         for _ in range(k):
             active = (it < self.n_cg) & (rz.abs() > tol2)
             Ap = self.Av(ops, p)
-            den = torch.dot(p, Ap)
+            den = self.dot(p, Ap)
             alpha = torch.where(den.abs() > 1e-30, rz / den, zero)
             x_n = x + alpha * p
             r_n = r - alpha * Ap
             z_n = self.M(ops, r_n)
-            rz_n = torch.dot(r_n, z_n)
+            rz_n = self.dot(r_n, z_n)
             beta = torch.where(rz.abs() > 1e-30, rz_n / rz, zero)
             p_n = p * beta + z_n
             x = torch.where(active, x_n, x)
@@ -266,7 +363,7 @@ class MaskedCG:
     def _start(self, ops, b):
         """The CG state at x0 = 0 for the right-hand side ``b``."""
         z = self.M(ops, b)
-        rz = torch.dot(b, z)
+        rz = self.dot(b, z)
         it = torch.zeros((), dtype=torch.int64, device=b.device)
         return dict(x=torch.zeros_like(b), r=b, z=z, p=z, rz=rz, it=it,
                     tol2=(self.cg_rtol * self.cg_rtol) * rz.abs())
@@ -276,6 +373,9 @@ class MaskedCG:
         st = self._start(ops, b)
         self.blocks = 0
         if self.graph and b.is_cuda:
+            if self.group is not None and dist.get_backend(self.group) != "nccl":
+                raise RuntimeError(f"a CUDA graph cannot capture the {dist.get_backend(self.group)} group's "
+                                   "collectives: set graph=False")
             g = self._graph_for(ops, st)
             for s, t in zip(_leaves(g["ops"]), _leaves(ops)):
                 s.copy_(t)
@@ -323,9 +423,12 @@ class MaskedCG:
 class _Term:
     """One qmap of the problem: its routes, per-dtype kernels and constants.
     ``coupled`` names the ESVs whose values the caller hands to
-    :meth:`inputs` (a blocked problem's cross-field couplings)."""
+    :meth:`inputs` (a blocked problem's cross-field couplings). Over a
+    process group (``ranks``) its element work runs on this rank's block of
+    cells ``[lo, hi)`` (``dom`` a :meth:`~..fem.assembly.QuadratureDomain.
+    block`), its per-point data on the block's points ``pts``."""
 
-    def __init__(self, t, use_stencil, use_banded, dtypes, device, coupled=()):
+    def __init__(self, t, use_stencil, use_banded, dtypes, device, coupled=(), ranks=None):
         qmap = t["qmap"]
         self.material = m = qmap.material
         self.scales = t["scales"]
@@ -333,7 +436,14 @@ class _Term:
         stencil = use_stencil and dom._stencil is not None and int(np.prod(dom._stencil)) == dom.ne
         self.dom = dom.variant(stencil=stencil, banded=use_banded)
         self.npts = dom.num_points
-        self.ne, self.nloc, self.ncomp = dom.ne, dom.nloc, dom.ncomp
+        self.lo, self.hi = 0, dom.ne
+        if ranks is not None and ranks.group is not None:
+            self.lo, self.hi = ranks.block(dom.ne)
+            self.dom = self.dom.block(self.lo, self.hi, ranks.sum)
+        self.pts = (self.lo * dom.nq, self.hi * dom.nq)
+        #: the Gauss points of every rank's block: the real ones, then padding
+        self.npts_pad = dom.nq * ranks.n * (self.hi - self.lo) if ranks is not None else self.npts
+        self.ne, self.nloc, self.ncomp = self.dom.ne, dom.nloc, dom.ncomp
         self.init_tpl = m.behavior.init_state()
         self.dofmap = self.dom.dofmap
         self.dofmap_np = dom._dofmap_np
@@ -365,9 +475,15 @@ class _Term:
                 "fused step's fast path ignores properties"
             )
 
-        # per-dtype evaluation kernels and constant per-point inputs
+        # per-dtype evaluation kernels and constant per-point inputs (past
+        # the real points, padding repeats the last one: a zero ESV can push
+        # a padded point out of the material's range, JAX's sharding.py)
         self.fns, self.consts, self.props, self.rot = {}, {}, {}, {}
         n = self.npts
+
+        def mine(a):
+            return _rows(a, *self.pts)
+
         for dt in dtypes:
             d = self.dom.variant(dtype=dt)
             self.fns[dt] = dict(
@@ -381,12 +497,12 @@ class _Term:
             for name, size, kind in self.esv_entries:
                 if kind == "const":
                     v = m.external_state.get(name)
-                    consts[name] = (m._to_batched(v, n, size) if v is not None
-                                    else torch.zeros((n, size), dtype=m.dtype, device=device)).to(dt)
+                    consts[name] = mine(m._to_batched(v, n, size) if v is not None
+                                        else torch.zeros((n, size), dtype=m.dtype, device=device)).to(dt)
             self.consts[dt] = consts
-            self.props[dt] = {k: v.to(dt) for k, v in m._assemble_props(n).items()}
+            self.props[dt] = {k: mine(v).to(dt) for k, v in m._assemble_props(n).items()}
             if m.rotation_matrix is not None:
-                self.rot[dt] = {k: v.to(dt) for k, v in m._rotation_ops(n).items()}
+                self.rot[dt] = {k: v.to(dt) for k, v in m._rotation_ops(self.pts[1] - self.pts[0]).items()}
 
     def inputs(self, u, dt, coupled=None):
         """The material's differentiable inputs at every point: gradients,
@@ -494,15 +610,23 @@ def make_sharded_newton_step_general(
     gradients, float64 for Mandel strains, whose float64 sqrt(2) promotes
     the JAX package's "f32" tangent and CG under x64.
 
-    ``axis`` (a name or a tuple of the mesh's names) and ``shard_dofs`` are
-    accepted: on one device the JAX step's collectives are the identity.
-    On the card the CG blocks are replayed as a CUDA graph (``step.cg``, a
-    :class:`MaskedCG`).
+    Over a process group's mesh each rank runs the element work of its
+    block of cells (the module's partition); u, the states, ``bc_mask``,
+    ``bc_vals``, ``f_ext`` and ``scales`` go in full on every rank and come
+    out full on every rank, and ``step.info``'s counts are the global ones.
+    ``shard_dofs=True`` splits u, R, the CG workspace and the bc arrays over
+    the ranks inside the step (the dof count padded to a multiple of the
+    rank count times the components, padded dofs pinned like Dirichlet
+    rows); on one device it changes nothing. ``axis`` names the mesh's axes
+    (the partition runs over all of them, outer first). On the card the CG
+    blocks are replayed as a CUDA graph (``step.cg``, a :class:`MaskedCG`)
+    where the group's collectives can be captured (NCCL).
     """
     dev = _mesh_device(mesh, axis)
     if _canonical(problem.device) != dev:
         raise ValueError(f"problem on {problem.device}, mesh on {dev}")
     device = problem.device
+    ranks = _Ranks(mesh)
     if smoother not in (None, "jacobi", "block"):
         raise ValueError(f"smoother must be None, 'jacobi' or 'block', got {smoother!r}")
     if precision not in ("same", "mixed"):
@@ -529,7 +653,32 @@ def make_sharded_newton_step_general(
     if rtol is None:
         rtol = 1e-10 if (mixed or f_hi == torch.float64) else 1e-6
     dtypes = sorted({f_hi, f_lo, f_K}, key=str)
-    terms = [_Term(t, use_stencil, use_banded, dtypes, device) for t in problem._terms]
+    terms = [_Term(t, use_stencil, use_banded, dtypes, device, ranks=ranks) for t in problem._terms]
+
+    # ---- the dof layout: u, R and the CG vectors whole on every rank, or
+    # (shard_dofs) this rank's slice of nd_p padded dofs
+    nd_p = ndofs + (-ndofs) % (ranks.n * nc) if shard_dofs else ndofs
+    dlo, dhi = ranks.block(nd_p) if shard_dofs else (0, ndofs)
+
+    def embed(v):
+        """This rank's slice among zeros, (ndofs,)."""
+        out = v.new_zeros(nd_p)
+        out[dlo:dhi] = v
+        return out[:ndofs]
+
+    def full(v):
+        """A vector of the layout in full (ndofs,)."""
+        return ranks.sum(embed(v)) if shard_dofs else v
+
+    def mine(v, fill=0):
+        """This rank's part of a full (ndofs,) vector (padded with ``fill``)."""
+        if not shard_dofs:
+            return v
+        return _rows(v, dlo, dhi, v.new_full((), fill))
+
+    def dot(a, b):
+        d = torch.dot(a, b)
+        return ranks.sum(d) if shard_dofs else d
 
     # ---- coarse space: tables, the fixed-order sums of Ac and restriction
     two_level = pc == "two_level"
@@ -566,7 +715,7 @@ def make_sharded_newton_step_general(
             nodes = term.dofmap_np[:, :: term.ncomp] // nc
             ci = agg_np[nodes].astype(np.int64)[:, :, None] * nmodes + np.arange(nmodes)[None, None, :]
             term.coarse_plan = _coarse_plan(ci, ncoarse, device)
-            term.W = tables(W_np[nodes])
+            term.W = {dt: _rows(w, term.lo, term.hi, w.new_zeros(())) for dt, w in tables(W_np[nodes]).items()}
     else:
         ncoarse = 0
     if two_level:
@@ -588,7 +737,7 @@ def make_sharded_newton_step_general(
         the element kernels in ``inp.dtype``, the residual rounded to u's
         dtype, the element tangents cast to ``f_K`` under ``cast_K``."""
         dt = inp.dtype
-        u_w, u = u, u.to(dt)
+        u_w, u = u, full(u).to(dt)
         R = torch.zeros(ndofs, dtype=dt, device=device)
         K_es, new_states = [], []
         for term, st, sc in zip(terms, inp.states, inp.scales):
@@ -602,25 +751,25 @@ def make_sharded_newton_step_general(
                 K = K.to(f_K)
             K_es.append(K)
             new_states.append(st_new)
-        return torch.where(mask, zero(dt), R - inp.f_ext).to(u_w.dtype), K_es, new_states
+        return torch.where(mask, zero(dt), mine(R) - inp.f_ext).to(u_w.dtype), K_es, new_states
 
     def rnorm(u, inp: _Inputs, mask):
         """The residual norm from flux-only updates (line-search trials), in
         u's dtype."""
         dt = inp.dtype
-        u_w, u = u, u.to(dt)
+        u_w, u = u, full(u).to(dt)
         R = torch.zeros(ndofs, dtype=dt, device=device)
         for term, st, sc in zip(terms, inp.states, inp.scales):
             flux, _, st_new = term.integrate(term.inputs(u, dt), st, dt, inp.dt, True)
             R = R + term.fns[dt]["residual"](u, term.fields(flux, st_new, sc))
-        R = torch.where(mask, zero(dt), R - inp.f_ext).to(u_w.dtype)
-        return float(torch.sqrt(torch.dot(R, R)))
+        R = torch.where(mask, zero(dt), mine(R) - inp.f_ext).to(u_w.dtype)
+        return float(torch.sqrt(dot(R, R)))
 
     def assemble_diag(K_es, dtype):
         d = torch.zeros(ndofs, dtype=dtype, device=device)
         for term, K in zip(terms, K_es):
             d = d + term.dom.matrix_diagonal(K, ndofs)
-        return d
+        return mine(d)
 
     # ---- frozen coarse operator -----------------------------------------
     def build_coarse(K_es, mask):
@@ -629,14 +778,15 @@ def make_sharded_newton_step_general(
         (the contrast of stiff inclusions), symmetrised both ways."""
         dtype = K_es[0].dtype
         Ac = torch.zeros(ncoarse * ncoarse, dtype=dtype, device=device)
+        free = full((~mask).to(dtype))
         for term, K in zip(terms, K_es):
-            w = (~mask[term.dofmap]).to(dtype)
+            w = free[term.dofmap]
             Kn = (K * w[:, :, None] * w[:, None, :]).reshape(term.ne, term.nloc, term.ncomp, term.nloc, term.ncomp)
             if p1:
                 C_e = torch.einsum("ax,eacbd,by->excyd", Wp1[dtype], Kn, Wp1[dtype])
             else:
                 C_e = torch.einsum("eacm,eacbd,ebdn->eambn", term.W[dtype], Kn, term.W[dtype])
-            Ac = Ac + fixed_sum(C_e.reshape(-1), term.coarse_plan)
+            Ac = Ac + fixed_sum(term.dom._paste(C_e).reshape(-1), term.coarse_plan)
         Ac = Ac.reshape(ncoarse, ncoarse)
         dAc = torch.diagonal(Ac)
         ridge = 1e-8 * dAc.abs().max() + 1e-30
@@ -669,11 +819,11 @@ def make_sharded_newton_step_general(
     # ---- the CG operands and its two functions ----------------------------
     def Av(ops, v):
         mask = ops["mask"]
-        v0 = torch.where(mask, zero(v.dtype), v)
-        y = torch.zeros_like(v)
+        v0 = full(torch.where(mask, zero(v.dtype), v))
+        y = torch.zeros_like(v0)
         for term, K in zip(terms, ops["K"]):
             y = y + term.dom.spmv(K, v0)
-        return torch.where(mask, v, y)
+        return torch.where(mask, v, mine(y))
 
     def M(ops, r):
         mask = ops["mask"]
@@ -688,13 +838,15 @@ def make_sharded_newton_step_general(
             r0 = torch.where(mask, zero(r.dtype), r)
             if s_inv is not None:
                 r0 = r0 * s_inv
-            corr = prolong(ops["Ac_inv"] @ restrict(r0))
+            # split dofs: each rank restricts its slice, the sums meet
+            rc = ranks.sum(restrict(embed(r0))) if shard_dofs else restrict(r0)
+            corr = mine(prolong(ops["Ac_inv"] @ rc))
             if s_inv is not None:
                 corr = corr * s_inv
             z = z + torch.where(mask, zero(r.dtype), corr)
         return z
 
-    cg = MaskedCG(Av, M, n_cg, cg_rtol)
+    cg = MaskedCG(Av, M, n_cg, cg_rtol, dot=dot, group=ranks.group)
 
     def newton_update(u, R, K_es, res, inp, mask, Ac_inv):
         """One Newton correction: CG in the tangent dtype (scaled under
@@ -706,15 +858,18 @@ def make_sharded_newton_step_general(
             diag = torch.where(mask | (diag.abs() < 1e-30), torch.ones_like(diag), diag.abs())
             s_vec = torch.rsqrt(diag)
             ops["s_inv"] = diag * s_vec
+            s_full = full(s_vec)
             K_ops = []
             for term, K in zip(terms, K_es):
-                s_e = s_vec[term.dofmap]
+                s_e = s_full[term.dofmap]
                 K_ops.append(K * s_e[:, :, None] * s_e[:, None, :])
         else:
             s_vec, K_ops = None, K_es
         ops["K"] = [term.dom.spmv_prepare(K) for term, K in zip(terms, K_ops)]
         if use_block:
             Bm = sum(term.dom.matrix_node_blocks(K, nnodes) for term, K in zip(terms, K_ops))
+            if shard_dofs:
+                Bm = _rows(Bm, dlo // nc, dhi // nc, Bm.new_zeros(()))
             mb = mask.reshape(-1, nc).to(cg_dtype)
             keep = 1.0 - mb
             eye = torch.eye(nc, dtype=cg_dtype, device=device)
@@ -747,6 +902,8 @@ def make_sharded_newton_step_general(
 
     # ---- states ------------------------------------------------------------
     def pad_states(states):
+        """Each map's states over every rank's points: the real points, then
+        the behavior's initial state on the padding cells' points."""
         out = []
         for term, st in zip(terms, states):
 
@@ -754,26 +911,24 @@ def make_sharded_newton_step_general(
                 a = torch.as_tensor(a, device=device)
                 if a.is_floating_point():
                     a = a.to(f_hi)
-                pad = term.npts - a.shape[0]
-                if pad == 0:
-                    return a
                 fill = torch.as_tensor(np.asarray(tpl), dtype=a.dtype, device=device)
-                return torch.cat([a, fill.expand((pad,) + tuple(a.shape[1:]))])
+                return _rows(a, 0, term.npts_pad, fill)
 
             out.append({k: pad_leaf(v, term.init_tpl[k]) for k, v in st.items()})
         return out
 
     def step(u, states, bc_mask, bc_vals, dt=0.0, scales=None, f_ext=None):
-        mask = torch.as_tensor(np.asarray(bc_mask) if not torch.is_tensor(bc_mask) else bc_mask,
-                               device=device).to(torch.bool)
-        vals = torch.as_tensor(bc_vals, device=device).to(f_hi)
-        u = torch.as_tensor(u, device=device).to(f_hi)
-        states = pad_states(states)
+        mask = mine(torch.as_tensor(np.asarray(bc_mask) if not torch.is_tensor(bc_mask) else bc_mask,
+                                    device=device).to(torch.bool), True)
+        vals = mine(torch.as_tensor(bc_vals, device=device).to(f_hi))
+        u = mine(torch.as_tensor(u, device=device).to(f_hi))
+        states = [{k: v[term.pts[0]: term.pts[1]] for k, v in st.items()}
+                  for term, st in zip(terms, pad_states(states))]
         if scales is None:
             scales = [[problem._scale_value(s) for s in term.scales] for term in terms]
         scales = [[float(s) for s in ss] for ss in scales]
-        f_ext = (torch.zeros(ndofs, dtype=f_hi, device=device) if f_ext is None
-                 else torch.as_tensor(f_ext, device=device).to(f_hi))
+        f_ext = mine(torch.zeros(ndofs, dtype=f_hi, device=device) if f_ext is None
+                     else torch.as_tensor(f_ext, device=device).to(f_hi))
         inp = _Inputs(states, scales, f_ext, float(dt), f_hi)
         u = torch.where(mask, vals, u)
         info = dict(warmup_newton=0, warmup_cg=0)
@@ -789,7 +944,7 @@ def make_sharded_newton_step_general(
             inp32 = _Inputs([_tmap(lo, st) for st in states], scales, lo(f_ext), float(dt), f_K)
             u32 = u.to(f_lo)
             R32, K_es, _ = evaluate(u32, inp32, mask, False)
-            res = float(torch.sqrt(torch.dot(R32, R32)))
+            res = float(torch.sqrt(dot(R32, R32)))
             res032 = max(res, 1e-30)
             Ac_inv = build_coarse(K_es, mask) if two_level else None
             it32 = cg32 = 0
@@ -800,8 +955,10 @@ def make_sharded_newton_step_general(
             while it32 < n_newton - 1 and res > max(rtol, 2e-5) * res032 + atol and progress:
                 u_new, cg_k = newton_update(u32, R32, K_es, res, inp32, mask, Ac_inv)
                 R32, K_es, _ = evaluate(u_new, inp32, mask, False)
-                res_n = float(torch.sqrt(torch.dot(R32, R32)))
-                progress = bool((u_new != u32).any()) and res_n < 0.7 * res
+                res_n = float(torch.sqrt(dot(R32, R32)))
+                # the line search moved u on some rank (its slice, split)
+                moved = (u_new != u32).any().to(f_lo)
+                progress = bool(ranks.sum(moved) > 0 if shard_dofs else moved > 0) and res_n < 0.7 * res
                 u32, res = u_new, res_n
                 it32 += 1
                 cg32 += cg_k
@@ -810,7 +967,7 @@ def make_sharded_newton_step_general(
 
         R, K_es, st_out = evaluate(u, inp, mask, mixed)
         info["cg_dtype"] = K_es[0].dtype
-        res_t = torch.sqrt(torch.dot(R, R))
+        res_t = torch.sqrt(dot(R, R))
         res = float(res_t)
         if res032 is not None:
             # the step's true entering residual, measured by the warmup
@@ -824,14 +981,16 @@ def make_sharded_newton_step_general(
         while n_it < n_newton and res > rtol * res0 + atol:
             u, cg_k = newton_update(u, R, K_es, res, inp, mask, Ac_inv)
             R, K_es, st_out = evaluate(u, inp, mask, mixed)
-            res_t = torch.sqrt(torch.dot(R, R))
+            res_t = torch.sqrt(dot(R, R))
             res = float(res_t)
             n_it += 1
             cg_sum += cg_k
         n_total, cg_total = n_it + info["warmup_newton"], cg_sum + info["warmup_cg"]
         info.update(polish_newton=n_it, polish_cg=cg_sum, newton=n_total, cg=cg_total, res0=res0)
         step.info = info
-        new_states = [{k: v[: term.npts] for k, v in st.items()} for term, st in zip(terms, st_out)]
+        new_states = [{k: ranks.join(v, term.pts[0], term.npts_pad)[: term.npts] for k, v in st.items()}
+                      for term, st in zip(terms, st_out)]
+        u = full(u)
         if return_info == "stats":
             return u, new_states, res_t, res_entering, (n_total, cg_total)
         if return_info:

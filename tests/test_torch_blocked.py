@@ -65,11 +65,13 @@ def vol_strain(P):
     return expr
 
 
-def thermo(P, N=6, alpha_th=1e-3, chi=6e3, kappa=1.0, k_cond=1.0):
+def thermo(P, N=6, alpha_th=1e-3, chi=6e3, kappa=1.0, k_cond=1.0, mesh=None):
     """tests/test_blocked.py ``build``: a stiffly two-way-coupled plate
-    (thermal expansion drives the mechanics, dilatation heats)."""
+    (thermal expansion drives the mechanics, dilatation heats), on an N x N
+    quad mesh or ``mesh``."""
     fem, pkg, forms, th = P["fem"], P["pkg"], P["forms"], P["thermal"]
-    mesh = fem.create_rectangle((0, 0), (1.0, 1.0), (N, N), "quad")
+    if mesh is None:
+        mesh = fem.create_rectangle((0, 0), (1.0, 1.0), (N, N), "quad")
     VT = fem.FunctionSpace(mesh, 1, ())
     mat_T = pkg.Material(th.ThermoMechanicalHeat(k=k_cond, kappa=kappa, chi=chi, T0=T0), **P["kw"])
     qT = pkg.QuadratureMap(VT, 2, mat_T)
@@ -486,3 +488,66 @@ def test_blocked_step_options_are_checked():
         tpar.make_sharded_blocked_step(blocked, mesh, smoother="ilu")
     with pytest.raises(ValueError, match="pc must be"):
         tpar.make_sharded_blocked_step(blocked, mesh, pc="amg")
+
+
+def thermo_step(P, N=6, mesh=None, dtype=None, **opts):
+    """One fused blocked step of the thermo-mechanical coupling from its
+    built state (BC values put in), its inputs cast to ``dtype``:
+    ``(z, |R|, problem)``."""
+    heat, mech, qT, qu = thermo(P, N, mesh=mesh)
+    blocked = P["solvers"].BlockedNonlinearProblem([heat, mech], couplings(P, qT, qu))
+    step, _ = P["par"].make_sharded_blocked_step(blocked, P["par"].device_mesh(1, **P["mesh_kw"]), **opts)
+    mask, vals = blocked._masks()
+    z0 = np.concatenate([heat.u.x, mech.u.x])
+    z0[host(mask)] = host(vals)[host(mask)]
+    states = [q.material.data_manager.s0.internal for q in (qT, qu)]
+    if dtype is not None:
+        z0, vals = z0.astype(dtype), host(vals).astype(dtype)
+        states = [{k: host(v).astype(dtype) for k, v in st.items()} for st in states]
+    z, _, rn = step(P["xp"].asarray(z0), states, mask, vals, 0.0)
+    return host(z), float(rn), blocked
+
+
+def test_blocked_step_two_level_beats_jacobi():
+    """tests/test_sharding_general.py's two-level case: on the 24 x 24
+    coupling at a budget of 20 BiCGStab iterations a Newton step, the
+    two-level preconditioner reaches the f64 floor where the scalar Jacobi
+    stalls, and its answer meets the host LU solve."""
+    P = PKGS["torch"]
+    z_tl, rn_tl, _ = thermo_step(P, 24, n_newton=8, n_cg=20, pc="two_level")
+    _, rn_jac, _ = thermo_step(P, 24, n_newton=8, n_cg=20, pc="jacobi", smoother="jacobi")
+    assert rn_tl < 1e-10, rn_tl
+    assert rn_jac > 1e-7, rn_jac
+    z_ref = solve_thermo("torch", 24)[0]
+    np.testing.assert_allclose(z_tl, z_ref, rtol=1e-6, atol=1e-8 * max(1.0, np.abs(z_ref).max()))
+
+
+def test_blocked_step_float32_banded_and_scalar_routes():
+    """tests/test_sharding_general.py's unstructured case: float32 inputs to
+    the float64 problem run the step in float32, on a reordered Delaunay
+    mesh big enough for the vector field's banded plans. The banded and
+    the gather-map routes agree to 2e-4, and both meet the float64 host LU
+    solve at float32 accuracy (the JAX test's 5e-3 relative, 5e-4 of the
+    scale)."""
+    from scipy.spatial import Delaunay
+
+    P = PKGS["torch"]
+    rng = np.random.default_rng(3)
+    g = 38  # 2888 triangles: the vector field has ne * ndof_el = 17328 >= 8192
+    xx, yy = np.meshgrid(np.arange(g + 1), np.arange(g + 1))
+    pts = np.stack([xx, yy], -1).reshape(-1, 2) / g
+    pts += np.where((pts > 0) & (pts < 1), rng.uniform(-0.2 / g, 0.2 / g, pts.shape), 0.0)
+    tri = tfem.reorder_mesh(tfem.mesh.Mesh(pts, Delaunay(pts).simplices.astype(np.int32), "triangle"))
+    heat, mech, qT, qu = thermo(P, mesh=tri)
+    assert qu.domain.banded_active
+    blocked = tsolvers.BlockedNonlinearProblem([heat, mech], couplings(P, qT, qu), options={"ksp_type": "lu"})
+    assert blocked.solve()[0]
+    z_ref = np.concatenate([heat.u.x, mech.u.x])
+    scale = max(1.0, np.abs(z_ref).max())
+    z_b, rn_b, _ = thermo_step(P, mesh=tri, dtype=np.float32, n_newton=16, n_cg=600, use_banded=True)
+    z_s, rn_s, _ = thermo_step(P, mesh=tri, dtype=np.float32, n_newton=16, n_cg=600, use_banded=False)
+    assert z_b.dtype == z_s.dtype == np.float32
+    assert rn_b < 1e-3 * E and rn_s < 1e-3 * E
+    np.testing.assert_allclose(z_b, z_s, rtol=2e-4, atol=2e-4 * scale)
+    for z in (z_b, z_s):
+        np.testing.assert_allclose(z, z_ref, rtol=5e-3, atol=5e-4 * scale)

@@ -20,7 +20,9 @@ tests/test_demos_smoke.py, each run in ``tmp_path``:
   displacement error to 1e-6 relative;
 - multimaterial_interface at its defaults (20 x 10 P1): the same Newton
   count, the matrix's p max to 1e-8 relative, the interface jump and both
-  fields to 1e-8 of their scale.
+  fields to 1e-8 of their scale;
+- sharded_scaling at two ranks (gloo, two processes) and N = 8: u and p to
+  1e-8 of their scale against the JAX demo's step on two devices.
 """
 
 import importlib.util
@@ -45,6 +47,7 @@ from dolfinx_materials_tpu_torch.demos import (  # noqa: E402
     multimaterial_interface,
     nn_surrogate,
     plane_elastoplasticity,
+    sharded_scaling,
     thermomechanics,
 )
 
@@ -210,3 +213,28 @@ def test_multimaterial_interface_matches_jax(monkeypatch):
     assert b["blocked"].solve() == (True, its)
     for got, want in zip(b["problems"], problems):
         assert rel(got.u.x, want.u.x) <= 1e-8
+
+
+def test_sharded_scaling_matches_jax(monkeypatch):
+    """The twin at two ranks on the CPU (gloo) against the JAX demo on two
+    virtual devices, the size tests/test_demos_smoke.py runs."""
+    mod = load("sharded_scaling")
+    outs = []
+
+    def recording_step(*args, **kwargs):
+        step, pad = make(*args, **kwargs)
+
+        def rec(*a):
+            outs.append(step(*a))
+            return outs[-1]
+
+        return rec, pad
+
+    make = mod.make_sharded_newton_step
+    monkeypatch.setattr(mod, "make_sharded_newton_step", recording_step)
+    mod.run(2, N=8)
+    u_j, st_j, rn_j = outs[-1]
+    got = sharded_scaling.run(2, N=8, device="cpu", reps=0)
+    assert rel(got["u"], u_j) <= 1e-8
+    assert rel(got["p"], np.asarray(st_j["p"]).reshape(-1)) <= 1e-8
+    assert got["res"] < 1e-8 * sharded_scaling.E and float(rn_j) < 1e-8 * sharded_scaling.E

@@ -456,7 +456,7 @@ def test_device_mesh_and_helpers():
     assert mesh.size == 1 and mesh.device == torch.device("cpu") and mesh.shape == {"cells": 1}
     two = tpar.device_mesh((1, 1), ("dcn", "ici"), devices=["cpu"])
     assert two.shape == {"dcn": 1, "ici": 1}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="multiprocess.initialize"):
         tpar.device_mesh(2, devices=["cpu", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
