@@ -50,3 +50,4 @@ from .solvers import (  # noqa: E402,F401
     solve_adaptive,
     solve_coupled,
 )
+from .calibration import fit_parameters, make_path_simulator  # noqa: E402,F401

@@ -20,12 +20,16 @@ planned once on the host (numpy) and run by a CUDA kernel
   these lists, one launch per take with the patches inside.
 
 Counterparts of dolfinx_materials_tpu/ops/banded_gather.py: the planners are
-copied (arrays as torch tensors on the plan's device), the plain version
-:func:`banded_take_reference` mirrors ``banded_take_xla``, and the kernel
-wrappers :func:`banded_take_ell` and :func:`banded_take_csr` replace the
-Pallas ``make_banded_take_vmem`` / ``make_banded_take``.
-:func:`compact_take_reference` is the plain version of the two kernels: the
-same lists, the same adds in the same order.
+copied (arrays as torch tensors on the plan's device); ``make_banded_take``,
+``make_banded_take_vmem`` and ``banded_take_xla`` become the kernel wrappers
+:func:`banded_take_csr` and :func:`banded_take_ell` and the plain version
+:func:`banded_take_reference`; the dispatcher :func:`banded_take` keeps its
+name. ``VMEM_TABLE_BYTES``, the TPU's on-chip table budget that chose between
+the two Pallas kernels, has no counterpart: the card's kernels read the
+table from global memory, and :func:`_best_take` chooses by the ELL padding
+of the plan (:data:`ELL_MAX_PADDING`). :func:`compact_take_reference` is the
+plain version of the two kernels: the same lists, the same adds in the same
+order.
 
 A scatter-add over a static index (the two-level coarse matrices, the
 block-Jacobi node blocks) is planned the same way: :func:`plan_fixed_sum`
@@ -412,6 +416,18 @@ def _best_take(plan: BandedTakePlan):
     """Kernel selection: ELL unless its padding exceeds
     :data:`ELL_MAX_PADDING`, then CSR."""
     return banded_take_ell if plan.ell_padding <= ELL_MAX_PADDING else banded_take_csr
+
+
+def banded_take(table, plan: BandedTakePlan):
+    """The take, dispatched (counterpart of the JAX package's
+    ``banded_take``): on a CUDA table the kernel that :func:`_best_take`
+    picks for the plan, on a CPU table the plain version. A table and a
+    plan on different devices raise."""
+    if plan.device != table.device:
+        raise ValueError(f"banded_take: plan on {plan.device}, table on {table.device}")
+    if table.device.type == "cpu":
+        return banded_take_reference(table, plan)
+    return _best_take(plan)(table, plan)
 
 
 # ------------------------------------------------------------ fixed-order sums

@@ -114,7 +114,9 @@ def launch(worker_argv, num_processes, timeout=900.0, env_extra=None, cwd=None, 
 
     Each worker gets three more arguments, ``process_id num_processes
     coordinator`` (``coordinator`` as given, else ``127.0.0.1:<free port>``),
-    and ``OMP_NUM_THREADS=1`` in its environment. A worker that exits
+    and ``OMP_NUM_THREADS=1`` and ``PYTHONUNBUFFERED=1`` in its environment
+    (``env_extra`` may set either): what a worker printed reaches its file at
+    once, so a worker that is killed keeps its output. A worker that exits
     non-zero ends the others at once; at ``timeout`` seconds every worker
     still running is killed. Returns the workers' outputs (stdout and stderr
     together); raises ``RuntimeError`` with every worker's last output when
@@ -122,6 +124,7 @@ def launch(worker_argv, num_processes, timeout=900.0, env_extra=None, cwd=None, 
     coord = coordinator or f"127.0.0.1:{pick_free_port()}"
     env = dict(os.environ)
     env["OMP_NUM_THREADS"] = "1"
+    env["PYTHONUNBUFFERED"] = "1"
     if env_extra:
         env.update(env_extra)
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(num_processes)]

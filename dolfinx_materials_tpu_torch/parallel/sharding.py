@@ -1002,6 +1002,13 @@ def make_sharded_newton_step_general(
     return step, pad_states
 
 
+def make_sharded_blocked_step(*args, **kwargs):
+    """See :func:`dolfinx_materials_tpu_torch.parallel.blocked.make_sharded_blocked_step`."""
+    from .blocked import make_sharded_blocked_step as _impl
+
+    return _impl(*args, **kwargs)
+
+
 def _coarse_plan(ci, ncoarse, device):
     """The fixed-order sum of element coarse matrices (ne, nf, nf) into the
     dense (ncoarse, ncoarse) operator; ``ci`` the coarse dof of every

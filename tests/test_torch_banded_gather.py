@@ -11,6 +11,8 @@
 - kernel selection by ELL padding.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -218,3 +220,21 @@ def test_take_wrappers_launch_or_raise_off_cpu(wrapper):
     with pytest.raises(TypeError, match="unsupported dtype"):
         take(torch.empty(tp.n_src, dtype=torch.int64, device="meta"), tp)
     assert take.launches == before
+
+
+@pytest.mark.parametrize("kind", ["fm", "asm"])
+def test_banded_take_dispatches_to_the_plain_version_on_the_cpu(kind):
+    """The public dispatcher on a CPU table is the plain version, bitwise,
+    for an ELL-routed and a CSR-routed plan; a plan on another device than
+    the table raises and launches nothing."""
+    tp, _ = plan_pair(kind, 1024)
+    table = torch.as_tensor(np.random.default_rng(0).standard_normal(tp.n_src))
+    assert torch.equal(bg.banded_take(table, tp), bg.banded_take_reference(table, tp))
+    launches = bg.banded_take_ell.launches + bg.banded_take_csr.launches
+    with pytest.raises(ValueError, match="plan on cpu, table on meta"):
+        bg.banded_take(torch.empty(tp.n_src, dtype=torch.float64, device="meta"), tp)
+    # the plan's device is that of its arrays (no data can be copied to meta)
+    meta_plan = dataclasses.replace(tp, rloc=tp.rloc.to("meta"))
+    with pytest.raises(ValueError, match="plan on meta, table on cpu"):
+        bg.banded_take(table, meta_plan)
+    assert bg.banded_take_ell.launches + bg.banded_take_csr.launches == launches

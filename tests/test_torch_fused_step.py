@@ -286,6 +286,105 @@ def test_specialized_step_matches_jax_and_host_solver():
     np.testing.assert_allclose(ut, host.u.x, rtol=1e-6, atol=1e-10)
 
 
+def fefp_plate(P):
+    """tests/test_sharding.py's finite-strain case: 5x5 P1 quads, FeFp J2
+    with Voce hardening (identity-initialised be and F_prev), u_x = 2 sig0/E
+    on the right edge."""
+    fem, m = P["fem"], P["models"]
+    V = fem.FunctionSpace(fem.create_unit_square(5, 5, "quad"), 1, (2,))
+    mat = P["pkg"].Material(m.FeFpJ2Plasticity(m.LinearElasticIsotropic(E, NU), m.VoceHardening(SIG0, 500.0, 1e2)),
+                            **P["kw"])
+    q = P["pkg"].QuadratureMap(V, 2, mat)
+    q.register_gradient("F", P["forms"].deformation_gradient_2d())
+    bcs = mech_bcs(P, V, 2 * SIG0 / E)
+    return [mat], V, bcs, P["pkg"].NonlinearMaterialProblem(q, fem.Function(V), bcs=bcs)
+
+
+def test_fefp_specialized_step_matches_jax_host_solver():
+    """The FeFp plate through the port's make_sharded_newton_step on one
+    device (14 Newton x 200 CG) against the JAX package's host solve (LU),
+    at tests/test_sharding.py's tolerances: u to rtol 1e-5 / atol 1e-9 and
+    p to rtol 1e-5 / atol 1e-10, a finite residual below 1e-7 E, p > 1e-4
+    somewhere. On one device no cell is padded; the padding is held over two
+    ranks in tests/test_torch_multiprocess.py."""
+    mats, V, bcs, host = fefp_plate(PKGS["jax"])
+    host.ksp_type = "lu"
+    assert host.solve()[0]
+    u_ref = np.asarray(host.u.x)
+    p_ref = np.asarray(mats[0].data_manager.s0["p"]).ravel()
+    assert p_ref.max() > 1e-4
+
+    mats, V, bcs, prob = fefp_plate(PKGS["torch"])
+    step, pad_state = tpar.make_sharded_newton_step(prob.qmaps[0], prob, tpar.device_mesh(1, devices=["cpu"]),
+                                                    n_newton=14, n_cg=200)
+    st0 = pad_state(mats[0].data_manager.s0.internal)
+    mask, vals = tcombine(bcs, V.num_dofs)
+    u, st, rn = step(np.zeros(V.num_dofs), st0, mask, vals, 0.0)
+    assert np.isfinite(float(rn)) and float(rn) < 1e-7 * E
+    np.testing.assert_allclose(u.numpy(), u_ref, rtol=1e-5, atol=1e-9)
+    np.testing.assert_allclose(st["p"].numpy().ravel()[: prob.qmaps[0].num_points], p_ref, rtol=1e-5, atol=1e-10)
+
+
+PC_DT, PC_NX, PC_L = 2.0, 12, 0.1
+
+
+def phase_change(P):
+    """tests/test_sharding_general.py's transient case: a 12x1 strip of P1
+    quads at Tm - 50, its left end held at Tm + 150, one implicit step of
+    dt = 2 with the Enthalpy ISV in the residual, the conduction term scaled
+    by a traced -dt and the previous enthalpy as the external force.
+    Returns ``(material, V, bcs, T, problem, f_ext, Tm)``."""
+    fem, forms = P["fem"], P["forms"]
+    beh = P["models"].PhaseChangeHeatTransfer(Tsmooth=5.0, dim=2)
+    mesh = fem.create_rectangle((0, 0), (PC_L, PC_L / PC_NX), (PC_NX, 1), "quad")
+    V = fem.FunctionSpace(mesh, 1, ())
+    mat = P["pkg"].Material(beh, **P["kw"])
+    q = P["pkg"].QuadratureMap(V, 2, mat)
+    q.register_gradient("TemperatureGradient", forms.scalar_gradient())
+    q.register_external_state_variable("Temperature", forms.scalar_value())
+    T = fem.Function(V)
+    T.x[:] = beh.Tm - 50.0
+    bcs = [fem.DirichletBC(fem.locate_dofs_geometrical(V, lambda x: np.isclose(x[:, 0], 0.0)), beh.Tm + 150.0)]
+    prob = P["pkg"].NonlinearMaterialProblem(
+        q, T, bcs=bcs,
+        residual_terms=[[("Enthalpy", forms.scalar_value()), ("HeatFlux", forms.scalar_gradient(), lambda: -PC_DT)]],
+        options={"ksp_type": "lu", "atol": 1e-4, "max_it": 60})
+    q.update(P["xp"].asarray(T.x))
+    q.advance()
+    ext = q.domain.make_residual([forms.scalar_value()])
+    f_ext = np.asarray(ext(P["xp"].asarray(T.x), [mat.data_manager.s0["Enthalpy"]]))
+    return mat, V, bcs, T, prob, f_ext, beh.Tm
+
+
+def test_transient_phase_change_matches_jax():
+    """The transient phase change through make_sharded_newton_step_general
+    (25 Newton x 300 CG, atol 1e-4): the port against the JAX fused step
+    (u and the states to 1e-8 of their scale, equal Newton and CG counts,
+    the entering residual to 1e-12) and against the JAX host solve (LU) at
+    tests/test_sharding_general.py's tolerances, rtol 1e-5 / atol 1e-3; the
+    front moved (a node above Tm)."""
+    out = {}
+    for which in ("torch", "jax"):
+        P = PKGS[which]
+        mat, V, bcs, T, prob, f_ext, Tm = phase_change(P)
+        step, pad = P["par"].make_sharded_newton_step_general(prob, P["par"].device_mesh(1, **P["mesh_kw"]),
+                                                              n_newton=25, n_cg=300, atol=1e-4, return_info="stats")
+        mask, vals = P["combine"](bcs, V.num_dofs)
+        u0 = np.array(T.x)
+        u0[mask] = vals[mask]
+        u, st, rn, rn0, (nn, ncg) = step(P["xp"].asarray(u0), pad([mat.data_manager.s0.internal]), mask, vals,
+                                         PC_DT, f_ext=P["xp"].asarray(f_ext))
+        out[which] = (np.asarray(u), [{k: np.asarray(v) for k, v in st[0].items()}], float(rn), float(rn0),
+                      (int(nn), int(ncg)))
+    assert out["torch"][2] < 2e-4
+    assert_same(out["torch"], out["jax"])
+    _, _, _, T, host, f_ext, Tm = phase_change(PKGS["jax"])
+    host.external_force = f_ext
+    assert host.solve()[0]
+    np.testing.assert_allclose(out["torch"][0], T.x, rtol=1e-5, atol=1e-3)
+    assert (out["torch"][0] > Tm).sum() >= 1
+
+
 def test_tuple_axes_and_sharded_dofs_match_one_axis():
     """A ("dcn", "ici") mesh with shard_dofs=True gives the one-axis step's
     bits in the port, and the JAX step's results on the same mesh."""

@@ -9,10 +9,11 @@ import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import h5py
 import numpy as np
 import pytest
 import torch
+
+h5py = pytest.importorskip("h5py")
 
 from dolfinx_materials_tpu import fem as jfem  # noqa: E402
 from dolfinx_materials_tpu.fem import io as jio  # noqa: E402

@@ -25,6 +25,7 @@ full assembly.
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -137,10 +138,38 @@ def general_case(mesh, device):
     return out
 
 
+def fefp_case(mesh, device):
+    """tests/test_sharding.py's finite-strain plate (5x5 P1 quads, FeFp J2
+    with Voce hardening, u_x = 2 sig0/E) through make_sharded_newton_step:
+    u, p, |R| and the padded initial state's F_prev and be (25 cells split
+    over 2 ranks pad to 26)."""
+    from dolfinx_materials_tpu_torch import Material, NonlinearMaterialProblem, QuadratureMap, fem, models
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.fem.forms import deformation_gradient_2d
+    from dolfinx_materials_tpu_torch.parallel import make_sharded_newton_step
+
+    V = fem.FunctionSpace(fem.create_unit_square(5, 5, "quad"), 1, (2,))
+    mat = Material(models.FeFpJ2Plasticity(models.LinearElasticIsotropic(E, NU), models.VoceHardening(SIG0, 500.0, 1e2)),
+                   device=device)
+    q = QuadratureMap(V, 2, mat)
+    q.register_gradient("F", deformation_gradient_2d())
+    loc = fem.locate_dofs_geometrical
+    bcs = [fem.DirichletBC(loc(V, lambda x: np.isclose(x[:, 0], 0), 0), 0.0),
+           fem.DirichletBC(loc(V, lambda x: np.isclose(x[:, 1], 0), 1), 0.0),
+           fem.DirichletBC(loc(V, lambda x: np.isclose(x[:, 0], 1), 0), 2 * SIG0 / E)]
+    prob = NonlinearMaterialProblem(q, fem.Function(V), bcs=bcs)
+    step, pad_state = make_sharded_newton_step(q, prob, mesh, n_newton=14, n_cg=200)
+    mask, vals = combine_bcs(bcs, V.num_dofs)
+    st0 = pad_state(mat.data_manager.s0.internal)
+    u, st, rn = step(np.zeros(V.num_dofs), st0, mask, vals, 0.0)
+    return {"fefp_u": u, "fefp_p": st["p"].reshape(-1)[: q.num_points], "fefp_res": rn.reshape(1),
+            "fefp_newton": np.asarray(step.info["newton"]), "fefp_F_prev0": st0["F_prev"], "fefp_be0": st0["be"]}
+
+
 def worker(argv):
     """``OUT CASES pid nproc coordinator``: CASES a comma list of update,
-    plate, plate22 (the plate on the (dcn, ici) = (2, 2) mesh), blocked and
-    general; rank 0 writes every result to OUT."""
+    plate, plate22 (the plate on the (dcn, ici) = (2, 2) mesh), blocked,
+    general and fefp; rank 0 writes every result to OUT."""
     import torch.distributed as dist
 
     from dolfinx_materials_tpu_torch.parallel import device_mesh
@@ -161,6 +190,8 @@ def worker(argv):
             out.update(demo.solve_blocked(mesh, BLOCKED, device))
         elif case == "general":
             out.update(general_case(mesh, device))
+        elif case == "fefp":
+            out.update(fefp_case(mesh, device))
     if int(pid) == 0:
         np.savez(out_file, **{k: (v.numpy() if torch.is_tensor(v) else np.asarray(v)) for k, v in out.items()})
     dist.destroy_process_group()
@@ -179,7 +210,7 @@ def launch(tmp, tag, nproc, cases):
 def runs(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("torch_mp"))
     return {
-        2: launch(tmp, "two", 2, "update,plate,blocked,general"),
+        2: launch(tmp, "two", 2, "update,plate,blocked,general,fefp"),
         "2again": launch(tmp, "two_again", 2, "plate"),
         4: launch(tmp, "four", 4, "update,plate,plate22"),
         1: launch(tmp, "one", 1, "plate"),
@@ -362,14 +393,65 @@ def test_shard_dofs_two_materials_and_thermal(runs):
     np.testing.assert_allclose(r["thermal_T"], prob.u.x, rtol=1e-8, atol=1e-8)
 
 
-def test_launch_raises_with_the_workers_output(tmp_path):
-    """A worker that exits non-zero fails the launch at once; the error
-    carries every worker's output."""
-    code = "import sys; print('rank', sys.argv[1], 'here'); sys.exit(3 if sys.argv[1] == '1' else 0)"
+def test_fefp_two_ranks_match_one_device(runs):
+    """The FeFp plate over two ranks: its 25 cells pad to 26, and the
+    padding cell's points start from the behavior's initial state (the
+    identity for be and F_prev; zeros would turn into NaN through
+    inv33(0)). u, p, |R| and the Newton count are bitwise the port's
+    one-device step's; the residual is finite and below 1e-7 E, and the
+    plate went plastic."""
+    from dolfinx_materials_tpu_torch.ops import tensors
+    from dolfinx_materials_tpu_torch.parallel import device_mesh
+
+    got = runs[2]
+    F_prev0, be0 = got["fefp_F_prev0"], got["fefp_be0"]
+    assert F_prev0.shape[0] == 26 * 4 and be0.shape[0] == 26 * 4
+    np.testing.assert_array_equal(F_prev0[-4:], np.broadcast_to(tensors.I9, (4, 9)))
+    np.testing.assert_array_equal(be0[-4:], np.broadcast_to(tensors.I2, (4, 6)))
+    one = fefp_case(device_mesh(1, devices=["cpu"]), torch.device("cpu"))
+    one = {k: (v.numpy() if torch.is_tensor(v) else np.asarray(v)) for k, v in one.items()}
+    bitwise(got, one, ["fefp_u", "fefp_p", "fefp_res", "fefp_newton"])
+    assert np.isfinite(got["fefp_res"][0]) and float(got["fefp_res"][0]) < 1e-7 * E
+    assert got["fefp_p"].max() > 1e-4
+
+
+def launch_pair(tmp_path, rank0, timeout):
+    """Two workers: rank 0 prints a line, writes a marker file and runs
+    ``rank0``; rank 1 prints, waits (30 s at most) for the marker and exits
+    3. Returns the launch's error text and the seconds it took."""
+    marker = tmp_path / "rank0_printed"
+    code = (f"import os, sys, time\n"
+            f"print('rank', sys.argv[1], 'here')\n"
+            f"if sys.argv[1] == '0':\n"
+            f"    open({str(marker)!r}, 'w').close()\n"
+            f"    {rank0}\n"
+            f"else:\n"
+            f"    t = time.time() + 30\n"
+            f"    while not os.path.exists({str(marker)!r}) and time.time() < t:\n"
+            f"        time.sleep(0.01)\n"
+            f"    sys.exit(3)\n")
+    t0 = time.perf_counter()
     with pytest.raises(RuntimeError) as err:
-        mp.launch([sys.executable, "-c", code], 2, timeout=60, coordinator=f"file://{tmp_path / 'store'}")
-    msg = str(err.value)
+        mp.launch([sys.executable, "-c", code], 2, timeout=timeout, coordinator=f"file://{tmp_path / 'store'}")
+    return str(err.value), time.perf_counter() - t0
+
+
+def test_launch_raises_with_the_workers_output(tmp_path):
+    """A worker that exits non-zero fails the launch; the error carries
+    every worker's output."""
+    msg, _ = launch_pair(tmp_path, "sys.exit(0)", timeout=60)
     assert "worker 1 (rc=3)" in msg and "rank 1 here" in msg and "rank 0 here" in msg
+
+
+def test_launch_keeps_a_killed_workers_output(tmp_path, monkeypatch):
+    """Rank 0 would sleep for 120 s after printing; rank 1's failure ends
+    it within seconds, and the error still carries the line rank 0 printed
+    before it was killed: launch makes every worker's output unbuffered,
+    whatever the caller's environment says."""
+    monkeypatch.delenv("PYTHONUNBUFFERED", raising=False)
+    msg, seconds = launch_pair(tmp_path, "time.sleep(120)", timeout=300)
+    assert seconds < 10, f"the launch took {seconds:.1f} s to raise"
+    assert "worker 1 (rc=3)" in msg and "rank 0 here" in msg and "rank 1 here" in msg
 
 
 def test_device_mesh_needs_a_group_and_initialize_a_card():

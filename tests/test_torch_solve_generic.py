@@ -12,6 +12,8 @@ converged plastic state rounding picks the tangent's branch in each package;
 ROADMAP.md Queue 3).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -263,3 +265,19 @@ def test_new_kinematic_expressions_match_jax():
     got = tforms.scalar_value()(tforms.Ctx(**{k: torch.as_tensor(np.asarray(v)) for k, v in ctx.items()}))
     want = jforms.scalar_value()(jforms.Ctx(**{k: jnp.asarray(v) for k, v in ctx.items()}))
     assert got.shape == (1,) and float(got[0]) == float(want[0]) == 5e-3
+
+
+def test_ramberg_osgood_matches_mtest_golden():
+    """tests/test_golden_reference.py's MFront MTest case through the port's
+    harness: Ramberg-Osgood nonlinear elasticity (E = 100e3, nu = 0.3,
+    sig0 = 500, alpha = 2e-3 E / sig0, n = 100), plane-strain uniaxial
+    tension in 21 increments to 1e-2; SXX, SYY and SZZ (the Mandel normal
+    components) against tests/golden/RambergOsgood_mtest.csv at rtol 1e-4,
+    atol 1e-4 sig0."""
+    Eg, sig0, n_inc = 100e3, 500.0, 21
+    stress, _, _ = uniaxial_tension_2D(
+        "torch", lambda m: m.RambergOsgoodNonLinearElasticity(E=Eg, nu=0.3, sig0=sig0, alpha=2e-3 * Eg / sig0, n=100.0),
+        np.linspace(0, 1e-2, n_inc + 1))
+    gold = np.loadtxt(pathlib.Path(__file__).parent / "golden" / "RambergOsgood_mtest.csv", skiprows=1, delimiter=",")
+    assert gold.shape[0] == n_inc + 1
+    np.testing.assert_allclose(stress[:, :3], gold[:, 7:10], rtol=1e-4, atol=1e-4 * sig0)
