@@ -5,8 +5,11 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --cards`` runs phase 22 alone, with its two
+references, on a machine with two or more cards.)
+
 It builds the CUDA kernels of ``dolfinx_materials_tpu_torch/csrc`` with nvcc
-(sm_90a) into ``build/kernels/`` and runs twenty-one phases; any failure
+(sm_90a) into ``build/kernels/`` and runs twenty-two phases; any failure
 exits non-zero before the result line is printed:
 
 1. build: every kernel, with the compiler's register report per template
@@ -112,12 +115,23 @@ exits non-zero before the result line is printed:
     phase-9 plate and first load through one NCCL rank of a process group
     (``python3 chip_smoke.py --dist-worker ...``, launched by
     ``multiprocess.launch``), u, p and counts bitwise equal to phase 9's
-    first step, K1/K3/K4 launched on the rank; (b) two ranks sharing the
-    card over gloo on phase 8's plate (on the banded route), both dof
-    layouts, and (c) the fused blocked step over the same two ranks at
-    phase 19's 64x32, each against its one-rank card run (u or z and p to
-    1e-8, equal Newton counts, Krylov counts within 5 %), every rank
-    launching K1, K3 and K4; ms per load step of each.
+    first step, K1/K3/K4 launched and the CG graph captured on the rank,
+    with the measurements of phase 22; (b) two ranks sharing the card over
+    gloo on phase 8's plate (on the banded route), both dof layouts, and (c)
+    the fused blocked step over the same two ranks at phase 19's 64x32,
+    each against its one-rank card run (u or z and p to 1e-8, equal Newton
+    counts, Krylov counts within 5 %), every rank launching K1, K3 and K4;
+    ms per load step of each;
+22. the multi-rank layer across cards (``[cards]``), where at least two
+    cards are visible (else one line says it did not run): phase 9's plate
+    and first load over 2 NCCL ranks, one a card, and over 4 where four
+    cards are visible, bitwise phase 9's first step; at the largest rank
+    count also with ``shard_dofs`` (u and p to 1e-10, equal Newton counts,
+    CG within 1 %) and phase 19's full-width interface step, bitwise its
+    one-card step; per rank count ms per load step and per Krylov
+    iteration, ``all_reduce`` calls and bytes per step per rank, K1/K3/K4
+    launches and CUDA graphs per rank, and rank 0's device-busy share over
+    a CG solve's blocks.
 
 Then it prints the card's name and power limit, one JSON line with every
 kernel's launches, error, time and bound, and as the last line the contract
@@ -1295,7 +1309,7 @@ def phase_fused(nx, fast):
     ptr, idx = plan.csr_ptr.cpu().numpy(), plan.csr_idx.cpu().numpy()
     tgt = np.empty(plan.n_src, np.int64)
     tgt[idx] = np.repeat(np.arange(plan.n_out), np.diff(ptr))
-    ref = bg.fixed_sum_reference(v.cpu(), bg.plan_fixed_sum(tgt, plan.n_out))
+    ref = bg.fixed_sum_reference(v.cpu(), bg.plan_fixed_sum(tgt, plan.n_out, device="cpu"))
     same = torch.equal(out.cpu(), ref)
     log(f"[fused] fused step's coarse matrix ({plan.n_src} terms into {plan.n_out} entries): banded_take_csr "
         f"against the plain version bitwise equal={same}, max abs diff {float((out.cpu() - ref).abs().max()):.3e} "
@@ -1317,7 +1331,7 @@ def phase_fused(nx, fast):
     atomic = [Kw.new_zeros(plan.n_out).index_add_(0, target, Kw) for _ in range(2)]
     same = torch.equal(*builds)
     # the plain version on the CPU, on a CPU plan of the same target
-    ref = bg.fixed_sum_reference(Kw.cpu(), bg.plan_fixed_sum(target.cpu().numpy(), plan.n_out))
+    ref = bg.fixed_sum_reference(Kw.cpu(), bg.plan_fixed_sum(target.cpu().numpy(), plan.n_out, device="cpu"))
     plain = torch.equal(builds[0].cpu(), ref)
     log(f"[fused] coarse matrix ({ncoarse} coarse dofs, {plan.n_src} terms into {plan.n_out} entries) built twice: "
         f"fixed-order sum bitwise equal={same}, against the plain version bitwise equal={plain} (max abs diff "
@@ -2200,7 +2214,9 @@ def phase_blocked():
     the main plate's width through the fused blocked step, its launches,
     times and device-busy share, and at 64 x 32 against the host LU solve
     on the card and against the CPU. Returns the K1/K3/K4 launches of (a)'s card solve and
-    (c)'s timed step, and (c)'s 64 x 32 card run ([dist] (c)'s reference)."""
+    (c)'s timed step, (c)'s 64 x 32 card run ([dist] (c)'s reference), and
+    the full-width timed step's z, p, counts and times ([cards] (b)'s
+    reference)."""
     from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
     from dolfinx_materials_tpu_torch.parallel import blocked as blocked_mod
@@ -2308,6 +2324,8 @@ def phase_blocked():
         blocked_mod._pbicgstab = pbicgstab
     full_counts = read_counts()
     info = step.info
+    full = dict(z=z.cpu().numpy(), p=[st["p"].reshape(-1).cpu().numpy() for st in states], newton=info["newton"],
+                bicgstab=info["bicgstab"], s=wall, ms_bicgstab=1e3 * bicg[0] / max(info["bicgstab"], 1))
     log(f"[blocked] (c) timed: newton={info['newton']} bicgstab={info['bicgstab']} "
         f"({info['bicgstab_per_newton']}) |R|={float(rn):.4e} (entering {info['residuals'][0]:.4e}) "
         f"wall_s={wall:.3f}, BiCGStab {bicg[0]:.3f} s = {1e3 * bicg[0] / max(info['bicgstab'], 1):.4f} ms "
@@ -2399,7 +2417,8 @@ def phase_blocked():
                              "did not all launch")
 
     log(f"[blocked] {time.perf_counter() - t0:.1f}s")
-    return {k: demo_counts[k] + full_counts[k] for k in full_counts}, {k: v for k, v in c.items() if k != "b"}
+    return ({k: demo_counts[k] + full_counts[k] for k in full_counts}, {k: v for k, v in c.items() if k != "b"},
+            full)
 
 
 # ------------------------------------------------------------------ phase 20
@@ -2597,48 +2616,184 @@ DIST_BENCH = dict(N=FUSED_BENCH_NX, hardening="voce", load=2.0, layouts="replica
 DIST_KERNELS = ("j2_radial_return", "banded_take_ell", "banded_take_csr")
 
 
-def dist_worker(argv):
-    """[dist] (a), one rank of ``python3 chip_smoke.py --dist-worker OUT nx
-    pid nproc coordinator``: [fused]'s plate at ``nx`` and its first load
-    from the lifted start with [fused]'s options, through the process
-    group's mesh (NCCL), called twice; writes u, p, counts, seconds and the
-    first call's launches, derived as [fused] derives them, to OUT."""
-    import torch.distributed as dist
+def reduced_since(cg, before, red):
+    """A fused step's ``all_reduce`` calls and bytes since ``before`` and
+    ``red`` (a ``graph_snapshot`` and a copy of ``sharding.REDUCED``),
+    derived as ``fused_launches`` derives launches: a graph's
+    ``recorded["all_reduce"]`` holds (calls, bytes) where a kernel's holds
+    (calls, float32 calls)."""
+    from dolfinx_materials_tpu_torch.parallel import sharding
 
+    now = sharding.REDUCED
+    calls, _ = fused_launches(cg, before, {"all_reduce": now["calls"] - red["calls"]})
+    nbytes, _ = fused_launches(cg, before, {"all_reduce": now["bytes"] - red["bytes"]}, f32=True)
+    return calls["all_reduce"], nbytes["all_reduce"]
+
+
+def dist_worker(argv):
+    """One NCCL rank, one card a rank, of ``python3 chip_smoke.py
+    --dist-worker OUT nx PARTS pid nproc coordinator`` ([dist] (a) and
+    [cards]). PARTS is a comma list: "replicated" and "sharded" run
+    [fused]'s plate at ``nx`` and its first load from the lifted start with
+    [fused]'s options through the group's mesh in that dof layout, called
+    twice (the first call captures the CG graph), then time the first
+    Newton iteration's CG solve again as a window (profiled on rank 0 for
+    the device-busy share); "blocked" runs [blocked] (c)'s full-width
+    interface step once, after [blocked] (c)'s warm-up. Each rank writes
+    ``OUT.<pid>.npz``: per part its counts, wall ms per step (the second
+    call's) and per Krylov iteration, K1/K3/K4 launches (the first call's,
+    derived as [fused] derives them), ``all_reduce`` calls and bytes per
+    step, CUDA graphs captured; rank 0 also u and p (z and each field's p)."""
+    from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
     from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
-    from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
+    from dolfinx_materials_tpu_torch.parallel import blocked as blocked_mod
+    from dolfinx_materials_tpu_torch.parallel import (
+        device_mesh, make_sharded_blocked_step, make_sharded_newton_step_general, sharding,
+    )
     from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
 
-    out, nx, pid, nproc, coord = argv
-    device = mp.initialize(int(pid), int(nproc), coord)
-    problem, qmap, bc_top, _ = build_plate(int(nx), device)
-    ndofs = problem.u.space.num_dofs
-    step, pad = make_sharded_newton_step_general(
-        problem, device_mesh(int(nproc)), n_newton=FUSED_NEWTON, n_cg=FUSED_CG, cg_rtol=FUSED_CG_RTOL,
-        pc="two_level", pc_boxes=FUSED_BOXES, return_info="stats")
-    bc_top.set(GENERIC_LOADS[0])
-    mask, vals = combine_bcs(problem.bcs, ndofs)
-    y = torch.as_tensor(problem.u.space.node_coords[:, 1], device=device)
-    u0 = lifted(torch.zeros(ndofs, dtype=torch.float64, device=device), GENERIC_LOADS[0], y)
-    states = pad([qmap.material.data_manager.s0.internal])
-    walls = []
-    for _ in range(2):  # the first call (the CG graph's capture) and a second one
-        reset_counts()
-        before = graph_snapshot(step.cg)
+    out, nx, parts, pid, nproc, coord = argv
+    pid, nproc, parts = int(pid), int(nproc), parts.split(",")
+    device = mp.initialize(pid, nproc, coord)
+    mesh = device_mesh(nproc)
+    res = {"device": str(device), "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+
+    def timed(fn):  # fn() and its wall seconds, synchronised
         torch.cuda.synchronize()
         t = time.perf_counter()
-        u, st, rn, rn0, (nn, ncg) = step(u0, states, mask, vals, 0.0)
+        r = fn()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        if len(walls) == 1:
-            counts, factors = fused_launches(step.cg, before, read_counts())
-    if int(pid) == 0:
-        np.savez(out, u=u.cpu().numpy(), p=st[0]["p"].reshape(-1).cpu().numpy(), newton=nn, cg=ncg,
-                 walls=np.asarray(walls), graphs=len(step.cg._graphs), graph=bool(step.cg.graph),
-                 **{f"launches_{k}": v for k, v in counts.items()})
-    print(f"[dist] rank {pid}: newton={nn} cg={ncg} |R|={float(rn):.4e} launches {counts} ({factors})", flush=True)
-    dist.destroy_process_group()
-    return 0
+        return r, time.perf_counter() - t
+
+    layouts = [p for p in parts if p in ("replicated", "sharded")]
+    if layouts:
+        problem, qmap, bc_top, _ = build_plate(int(nx), device)
+        ndofs = problem.u.space.num_dofs
+        bc_top.set(GENERIC_LOADS[0])
+        mask, vals = combine_bcs(problem.bcs, ndofs)
+        y = torch.as_tensor(problem.u.space.node_coords[:, 1], device=device)
+        u0 = lifted(torch.zeros(ndofs, dtype=torch.float64, device=device), GENERIC_LOADS[0], y)
+    for layout in layouts:
+        step, pad = make_sharded_newton_step_general(
+            problem, mesh, n_newton=FUSED_NEWTON, n_cg=FUSED_CG, cg_rtol=FUSED_CG_RTOL, pc="two_level",
+            pc_boxes=FUSED_BOXES, return_info="stats", shard_dofs=layout == "sharded")
+        states = pad([qmap.material.data_manager.s0.internal])
+        solve, cg_wall, solves = step.cg.solve, [0.0], []
+
+        def timed_solve(ops, b, solve=solve, cg_wall=cg_wall, solves=solves):
+            if not solves:
+                solves.append((ops, b))
+            r, s = timed(lambda: solve(ops, b))
+            cg_wall[0] += s
+            return r
+
+        step.cg.solve = timed_solve
+        walls = []
+        for call in range(2):
+            reset_counts()
+            before, red, cg_wall[0] = graph_snapshot(step.cg), dict(sharding.REDUCED), 0.0
+            (u, st, rn, rn0, (nn, ncg)), s = timed(lambda: step(u0, states, mask, vals, 0.0))
+            walls.append(s)
+            if call == 0:
+                launches, factors = fused_launches(step.cg, before, read_counts())
+        calls, nbytes = reduced_since(step.cg, before, red)
+        step.cg.solve = solve
+        ops, b = solves[0]
+
+        def window(ops=ops, b=b, solve=solve):
+            return solve(ops, b)
+
+        n_win = window()[1]
+        wall_win = seconds_per_call(window)
+        if pid == 0:
+            busy = device_busy_ms(window)
+        else:  # the collectives of rank 0's profiled call
+            busy = timed(window) and None
+        res.update({f"{layout}_{k}": v for k, v in dict(
+            newton=nn, cg=ncg, res=float(rn), walls=np.asarray(walls), ms_cg=1e3 * cg_wall[0] / max(ncg, 1),
+            reduce_calls=calls, reduce_bytes=nbytes, graphs=len(step.cg._graphs), window_its=n_win,
+            window_ms=1e3 * wall_win, busy_ms=np.nan if busy is None else busy,
+            **{f"launches_{k}": v for k, v in launches.items()}).items()})
+        if pid == 0:
+            res.update({f"{layout}_u": u.cpu().numpy(), f"{layout}_p": st[0]["p"].reshape(-1).cpu().numpy()})
+        print(f"[cards] rank {pid}/{nproc} {layout}: newton={nn} cg={ncg} |R|={float(rn):.4e} walls {walls} "
+              f"all_reduce {calls} calls {nbytes} B launches {launches} ({factors})", flush=True)
+    if "blocked" in parts:
+        b = mmi.build(BLOCKED_NX, BLOCKED_NX // 2, 2, device=device, pull=BLOCKED_PULL)
+        blocked = b["blocked"]
+        bmask, bvals = blocked._masks()
+        z0 = torch.where(bmask, bvals, torch.as_tensor(b["start"], device=device))
+        step, pad = make_sharded_blocked_step(blocked, mesh, **BLOCKED_OPTS)
+        states0 = pad([q.material.data_manager.s0.internal for q in b["qmaps"]])
+        warm, _ = make_sharded_blocked_step(blocked, mesh, **dict(BLOCKED_OPTS, n_newton=1, n_cg=BLOCKED_WARM_CG))
+        timed(lambda: warm(z0, states0, bmask, bvals, 0.0))
+        del warm
+        pbicgstab, bicg = blocked_mod._pbicgstab, [0.0]
+
+        def timed_bicgstab(*a, **k):
+            r, s = timed(lambda: pbicgstab(*a, **k))
+            bicg[0] += s
+            return r
+
+        reset_counts()
+        red = dict(sharding.REDUCED)
+        blocked_mod._pbicgstab = timed_bicgstab
+        try:
+            (z, states, rn), s = timed(lambda: step(z0, states0, bmask, bvals, 0.0))
+        finally:
+            blocked_mod._pbicgstab = pbicgstab
+        info = step.info
+        res.update({f"blocked_{k}": v for k, v in dict(
+            newton=info["newton"], bicgstab=info["bicgstab"], res=float(rn), wall=s,
+            ms_bicgstab=1e3 * bicg[0] / max(info["bicgstab"], 1),
+            reduce_calls=sharding.REDUCED["calls"] - red["calls"],
+            reduce_bytes=sharding.REDUCED["bytes"] - red["bytes"],
+            **{f"launches_{k}": v for k, v in read_counts().items()}).items()})
+        if pid == 0:
+            res["blocked_z"] = z.cpu().numpy()
+            res.update({f"blocked_p{i}": st["p"].reshape(-1).cpu().numpy() for i, st in enumerate(states)})
+        print(f"[cards] rank {pid}/{nproc} blocked: newton={info['newton']} bicgstab={info['bicgstab']} "
+              f"|R|={float(rn):.4e} wall {s:.3f}s", flush=True)
+    np.savez(f"{out}.{pid}.npz", **{k: np.asarray(v) for k, v in res.items()})
+    mp.exit_worker()
+
+
+def load_ranks(out, nproc):
+    """The ``--dist-worker`` files of ``nproc`` ranks, rank 0 first."""
+    ranks = []
+    for pid in range(nproc):
+        with np.load(f"{out}.{pid}.npz") as f:
+            ranks.append({k: (f[k].item() if f[k].ndim == 0 else f[k]) for k in f.files})
+    return ranks
+
+
+def rank_launches(r, part):
+    return {k: int(r[f"{part}_launches_{k}"]) for k in DIST_KERNELS}
+
+
+def plate_line(ranks, layout):
+    """[fused]'s plate over ``ranks`` in ``layout``: what [dist] (a) and
+    [cards] print of it."""
+    r0 = ranks[0]
+    walls = r0[f"{layout}_walls"]
+    busy = r0[f"{layout}_busy_ms"]
+    share = busy / r0[f"{layout}_window_ms"] if np.isfinite(busy) else None
+    return (f"newton={r0[f'{layout}_newton']} cg={r0[f'{layout}_cg']} |R|={r0[f'{layout}_res']:.4e}; step "
+            f"{1e3 * walls[1]:.1f} ms (second call; first {1e3 * walls[0]:.1f} ms), "
+            f"{r0[f'{layout}_ms_cg']:.4f} ms a CG iteration (wall of the CG solves); all_reduce per step per rank "
+            f"{[int(r[f'{layout}_reduce_calls']) for r in ranks]} calls, "
+            f"{[int(r[f'{layout}_reduce_bytes']) for r in ranks]} B; launches per rank "
+            f"{[rank_launches(r, layout) for r in ranks]}; CUDA graphs captured per rank "
+            f"{[int(r[f'{layout}_graphs']) for r in ranks]}; rank 0 window of {r0[f'{layout}_window_its']} CG "
+            f"iterations {r0[f'{layout}_window_ms']:.2f} ms, "
+            + (f"device busy {busy:.2f} ms, busy share {share:.3f}" if share is not None
+               else "device time not measured (the profiler recorded no device event)"))
+
+
+def plate_ranks_ok(ranks, layout):
+    """Every rank launched K1, K3 and K4 and captured its CG graph."""
+    return all(v > 0 for r in ranks for v in rank_launches(r, layout).values()) and all(
+        int(r[f"{layout}_graphs"]) > 0 for r in ranks)
 
 
 def phase_dist(nx, fused_first, blocked_ref):
@@ -2652,25 +2807,24 @@ def phase_dist(nx, fused_first, blocked_ref):
     total = dict.fromkeys(DIST_KERNELS, 0)
     # (a) one NCCL rank at full width against [fused]'s first step
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "a.npz")
+        out = os.path.join(tmp, "a")
         t = time.perf_counter()
-        mp.launch([sys.executable, os.path.abspath(__file__), "--dist-worker", out, str(nx)], 1, timeout=DIST_TIMEOUT)
+        mp.launch([sys.executable, os.path.abspath(__file__), "--dist-worker", out, str(nx), "replicated"], 1,
+                  timeout=DIST_TIMEOUT)
         s_a = time.perf_counter() - t
-        with np.load(out) as f:
-            a = dict(f)
-    ref = fused_first
-    same = (np.array_equal(a["u"], ref["u"].numpy()) and np.array_equal(a["p"], ref["p"].numpy())
-            and (int(a["newton"]), int(a["cg"])) == (ref["newton"], ref["cg"]))
-    launched = {k: int(a[f"launches_{k}"]) for k in DIST_KERNELS}
-    ok = same and all(v > 0 for v in launched.values())
+        ranks = load_ranks(out, 1)
+    a, ref = ranks[0], fused_first
+    same = (np.array_equal(a["replicated_u"], ref["u"].numpy()) and np.array_equal(a["replicated_p"], ref["p"].numpy())
+            and (a["replicated_newton"], a["replicated_cg"]) == (ref["newton"], ref["cg"]))
+    launched = rank_launches(a, "replicated")
+    ok = same and plate_ranks_ok(ranks, "replicated")
     log(f"[dist] (a) {nx}x{2 * nx} P2 plate, one NCCL rank through the process group, [fused]'s first load: "
-        f"newton={int(a['newton'])} cg={int(a['cg'])} (fused {ref['newton']}/{ref['cg']}); u, p and counts "
-        f"bitwise equal to [fused]'s first step={same}; step {1e3 * a['walls'][0]:.1f} ms first call, "
-        f"{1e3 * a['walls'][1]:.1f} ms second ([fused]'s first step {1e3 * ref['s']:.1f} ms); CG graph "
-        f"{bool(a['graph'])} ({int(a['graphs'])} captured); rank launches {launched} ([fused] {ref['counts']}); "
-        f"launch {s_a:.1f}s {'ok' if ok else 'FAIL'}")
+        + plate_line(ranks, "replicated") + f"; [fused]'s first step {ref['newton']}/{ref['cg']}, "
+        f"{1e3 * ref['s']:.1f} ms, launches {ref['counts']}; u, p and counts bitwise equal to [fused]'s first "
+        f"step={same}; launch {s_a:.1f}s {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("[dist] (a) the one-rank group step differs from [fused]'s, or K1/K3/K4 did not launch")
+        raise AssertionError("[dist] (a) the one-rank group step differs from [fused]'s, or K1/K3/K4 did not launch, "
+                             "or the CG graph was not captured")
     total = {k: total[k] + v for k, v in launched.items()}
 
     # (b) and (c): two ranks sharing the card over gloo, in one launch
@@ -2722,6 +2876,169 @@ def phase_dist(nx, fused_first, blocked_ref):
     return total
 
 
+# ------------------------------------------------------------------ phase 22
+#: [cards]: the multi-rank layer over NCCL, one rank a card, on a machine
+#: with at least two cards: [fused]'s plate at [fused]'s first load over 2
+#: ranks and, with four cards, over 4, bitwise [fused]'s first step in the
+#: replicated dof layout; at the largest rank count also with
+#: ``shard_dofs`` (u and p to CARDS_SHARD_TOL of their largest entry, equal
+#: Newton counts, CG within CARDS_CG_SPREAD) and [blocked] (c)'s full-width
+#: interface step, bitwise [blocked] (c)'s one-card step
+CARDS_TIMEOUT = 300  # seconds a launch may take
+CARDS_SHARD_TOL, CARDS_CG_SPREAD = 1e-10, 0.01
+
+
+def phase_cards(nx, fused_first, blocked_full):
+    """[cards] (the constants above). Returns the K1/K3/K4 launches of its
+    ranks, summed over ranks and rank counts (zeros where it does not run)."""
+    from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
+
+    total = dict.fromkeys(DIST_KERNELS, 0)
+    ncards = torch.cuda.device_count()
+    if ncards < 2:
+        log(f"[cards] not run: {ncards} card visible (needs 2)")
+        return total
+    t0 = time.perf_counter()
+    counts = (2, 4) if ncards >= 4 else (2,)
+    torch.cuda.empty_cache()  # the ranks' room on cuda:0
+    ref = fused_first
+    for nproc in counts:
+        largest = nproc == counts[-1]
+        parts = "replicated,sharded,blocked" if largest else "replicated"
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cards")
+            t = time.perf_counter()
+            mp.launch([sys.executable, os.path.abspath(__file__), "--dist-worker", out, str(nx), parts], nproc,
+                      timeout=CARDS_TIMEOUT, env_extra={"NCCL_DEBUG": "WARN"})
+            s_launch = time.perf_counter() - t
+            ranks = load_ranks(out, nproc)
+        r0 = ranks[0]
+        log(f"[cards] {nproc} NCCL ranks on {[r['device'] for r in ranks]} (NCCL {r0['nccl']}): launch of "
+            f"{parts} {s_launch:.1f}s")
+        same = (np.array_equal(r0["replicated_u"], ref["u"].numpy())
+                and np.array_equal(r0["replicated_p"], ref["p"].numpy())
+                and (r0["replicated_newton"], r0["replicated_cg"]) == (ref["newton"], ref["cg"]))
+        ok = same and plate_ranks_ok(ranks, "replicated")
+        log(f"[cards] (a) {nx}x{2 * nx} P2 plate, replicated dofs, {nproc} ranks: " + plate_line(ranks, "replicated")
+            + f"; [fused]'s first step {ref['newton']}/{ref['cg']}, {1e3 * ref['s']:.1f} ms; u, p and counts "
+            f"bitwise equal to [fused]'s first step={same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[cards] (a) {nproc} ranks: the replicated step differs from [fused]'s first step, "
+                                 "or a rank did not launch K1/K3/K4 or capture its CG graph")
+        parts_run = ["replicated"]
+        if largest:
+            u_ref, p_ref = ref["u"].numpy(), ref["p"].numpy()
+            e_u = float(np.abs(r0["sharded_u"] - u_ref).max() / np.abs(u_ref).max())
+            e_p = float(np.abs(r0["sharded_p"] - p_ref).max() / max(np.abs(p_ref).max(), np.finfo(float).tiny))
+            nn, ncg = r0["sharded_newton"], r0["sharded_cg"]
+            ok = (e_u <= CARDS_SHARD_TOL and e_p <= CARDS_SHARD_TOL and nn == ref["newton"]
+                  and abs(ncg - ref["cg"]) <= CARDS_CG_SPREAD * ref["cg"] and plate_ranks_ok(ranks, "sharded"))
+            log(f"[cards] (a) {nx}x{2 * nx} P2 plate, shard_dofs, {nproc} ranks: " + plate_line(ranks, "sharded")
+                + f"; against [fused]'s first step u rel err {e_u:.2e} p rel err {e_p:.2e} (tol "
+                f"{CARDS_SHARD_TOL:g}, equal Newton, CG within {CARDS_CG_SPREAD:.0%}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[cards] (a) {nproc} ranks, shard_dofs: the step disagrees with [fused]'s "
+                                     "first step, or a rank did not launch K1/K3/K4 or capture its CG graph")
+            bf = blocked_full
+            e_p = [float(np.abs(r0[f"blocked_p{i}"] - p).max() / np.abs(p).max()) for i, p in enumerate(bf["p"])]
+            same = (np.array_equal(r0["blocked_z"], bf["z"])
+                    and (r0["blocked_newton"], r0["blocked_bicgstab"]) == (bf["newton"], bf["bicgstab"]))
+            launched = [rank_launches(r, "blocked") for r in ranks]
+            ok = same and all(v > 0 for r in launched for v in r.values())
+            log(f"[cards] (b) blocked interface step {BLOCKED_NX}x{BLOCKED_NX // 2} P2, {nproc} ranks: "
+                f"newton={r0['blocked_newton']} bicgstab={r0['blocked_bicgstab']} |R|={r0['blocked_res']:.4e}; step "
+                f"{r0['blocked_wall']:.3f} s (one call after the warm-up), {r0['blocked_ms_bicgstab']:.4f} ms a "
+                f"BiCGStab iteration; all_reduce per step per rank {[int(r['blocked_reduce_calls']) for r in ranks]} "
+                f"calls, {[int(r['blocked_reduce_bytes']) for r in ranks]} B; launches per rank {launched} | "
+                f"[blocked] (c)'s one-card step newton={bf['newton']} bicgstab={bf['bicgstab']} {bf['s']:.3f} s, "
+                f"{bf['ms_bicgstab']:.4f} ms a BiCGStab iteration; z and counts bitwise equal={same}, p rel err "
+                f"{' '.join(f'{e:.2e}' for e in e_p)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[cards] (b) {nproc} ranks: the blocked step differs from [blocked] (c)'s "
+                                     "one-card step, or a rank did not launch K1/K3/K4")
+            parts_run += ["sharded", "blocked"]
+        for r in ranks:
+            for part in parts_run:
+                total = {k: total[k] + v for k, v in rank_launches(r, part).items()}
+    log(f"[cards] {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def cards_alone(nx=128):
+    """``python3 chip_smoke.py --cards``: [cards] alone on a machine with
+    two or more cards, after the kernels' build, with its two references
+    computed on one card as [fused] and [blocked] (c) compute them: the
+    plate's first step from the lifted start (one call of a new step) and
+    the full-width interface step (set-up, the warm-up, one timed call)."""
+    from dolfinx_materials_tpu_torch.demos import multimaterial_interface as mmi
+    from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
+    from dolfinx_materials_tpu_torch.parallel import blocked as blocked_mod
+    from dolfinx_materials_tpu_torch.parallel import (
+        device_mesh, make_sharded_blocked_step, make_sharded_newton_step_general,
+    )
+
+    if torch.cuda.device_count() < 2:
+        print(f"chip_smoke --cards: {torch.cuda.device_count()} card visible, [cards] needs 2", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    smi = phase_build()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    mesh = device_mesh(1, devices=[DEVICE])
+    problem, qmap, bc_top, _ = build_plate(nx, DEVICE)
+    ndofs = problem.u.space.num_dofs
+    step, pad = make_sharded_newton_step_general(problem, mesh, n_newton=FUSED_NEWTON, n_cg=FUSED_CG,
+                                                 cg_rtol=FUSED_CG_RTOL, pc="two_level", pc_boxes=FUSED_BOXES,
+                                                 return_info="stats")
+    bc_top.set(GENERIC_LOADS[0])
+    mask, vals = combine_bcs(problem.bcs, ndofs)
+    y = torch.as_tensor(problem.u.space.node_coords[:, 1], device=DEVICE)
+    u0 = lifted(torch.zeros(ndofs, dtype=torch.float64, device=DEVICE), GENERIC_LOADS[0], y)
+    (u, st, _, _, (nn, ncg)), s = timed(lambda: step(u0, pad([qmap.material.data_manager.s0.internal]), mask, vals,
+                                                     0.0))
+    fused_first = dict(u=u.cpu(), p=st[0]["p"].reshape(-1).cpu(), newton=nn, cg=ncg, s=s)
+    log(f"[cards] reference: [fused]'s first step on one card newton={nn} cg={ncg} {s:.3f}s (first call)")
+    del step, problem, qmap
+
+    b = mmi.build(BLOCKED_NX, BLOCKED_NX // 2, 2, device=DEVICE, pull=BLOCKED_PULL)
+    blocked = b["blocked"]
+    bmask, bvals = blocked._masks()
+    z0 = torch.where(bmask, bvals, torch.as_tensor(b["start"], device=DEVICE))
+    step, pad = make_sharded_blocked_step(blocked, mesh, **BLOCKED_OPTS)
+    states0 = pad([q.material.data_manager.s0.internal for q in b["qmaps"]])
+    warm, _ = make_sharded_blocked_step(blocked, mesh, **dict(BLOCKED_OPTS, n_newton=1, n_cg=BLOCKED_WARM_CG))
+    timed(lambda: warm(z0, states0, bmask, bvals, 0.0))
+    pbicgstab, bicg = blocked_mod._pbicgstab, [0.0]
+
+    def timed_bicgstab(*a, **k):
+        r, sb = timed(lambda: pbicgstab(*a, **k))
+        bicg[0] += sb
+        return r
+
+    blocked_mod._pbicgstab = timed_bicgstab
+    try:
+        (z, states, _), s = timed(lambda: step(z0, states0, bmask, bvals, 0.0))
+    finally:
+        blocked_mod._pbicgstab = pbicgstab
+    info = step.info
+    blocked_full = dict(z=z.cpu().numpy(), p=[st["p"].reshape(-1).cpu().numpy() for st in states],
+                        newton=info["newton"], bicgstab=info["bicgstab"], s=s,
+                        ms_bicgstab=1e3 * bicg[0] / max(info["bicgstab"], 1))
+    log(f"[cards] reference: [blocked] (c)'s full-width step on one card newton={info['newton']} "
+        f"bicgstab={info['bicgstab']} {s:.3f}s")
+    del b, blocked, step, warm, states0, states
+    phase_cards(nx, fused_first, blocked_full)
+    log(f"[total] {time.perf_counter() - t0:.1f}s")
+    print(smi)
+    return 0
+
+
 def bg_name(plan):
     from dolfinx_materials_tpu_torch.ops import banded_gather as bg
 
@@ -2765,9 +3082,10 @@ def main():
     log(f"[fefp] {time.perf_counter() - t_fefp:.1f}s")
     phase_crystal()
     phase_families()
-    blocked_counts, blocked_check = phase_blocked()
+    blocked_counts, blocked_check, blocked_full = phase_blocked()
     owed_counts = phase_owed()
     dist_counts = phase_dist(nx_full, fused_first, blocked_check)
+    cards_counts = phase_cards(nx_full, fused_first, blocked_full)
     log(f"[total] {time.perf_counter() - t0:.1f}s")
 
     keys = ("cell", "fm", "asm")
@@ -2791,7 +3109,7 @@ def main():
         by_path = {"main": counts[name], "fused": fused_counts[name],
                    **{k: ogden[k][name] for k in ("ogden_tet", "ogden_hex", "composite")},
                    "demo": demo_counts[name], "fefp": fefp_counts[name], "blocked": blocked_counts[name],
-                   "owed": owed_counts[name], "dist": dist_counts[name]}
+                   "owed": owed_counts[name], "dist": dist_counts[name], "cards": cards_counts[name]}
         plate = times(keys)
         return {
             "name": name, "route": "cuda",
@@ -2827,7 +3145,8 @@ def main():
         j2_row("j2_radial_return", "dolfinx_materials_tpu/ops/pallas_j2.py:103",
                {"main": counts["j2_radial_return"], "fused": fused_counts["j2_radial_return"],
                 "demo": demo_counts["j2_radial_return"], "blocked": blocked_counts["j2_radial_return"],
-                "owed": owed_counts["j2_radial_return"], "dist": dist_counts["j2_radial_return"]},
+                "owed": owed_counts["j2_radial_return"], "dist": dist_counts["j2_radial_return"],
+                "cards": cards_counts["j2_radial_return"]},
                k1, j2_worst["full"], "full"),
         j2_row("j2_radial_return_factored", "dolfinx_materials_tpu/ops/pallas_j2.py:196",
                {"point": point_counts["j2_radial_return_factored"]}, k2, j2_worst["factored"], "factored"),
@@ -2850,4 +3169,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(cards_alone())
     sys.exit(main())

@@ -194,7 +194,7 @@ def worker(argv=None):
             arrays.update({f"rank{r}_{k}": np.asarray(v) for k, v in c.items()})
         np.savez(args.worker, **arrays)
     print(f"[{args.pid}] done on {device}", flush=True)
-    dist.destroy_process_group()
+    mp.exit_worker()
 
 
 def launch_worker(nproc, options, timeout=900.0):

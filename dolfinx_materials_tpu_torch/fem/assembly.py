@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
+from .. import resolve_device
 from ..ops import banded_gather as bg
 from .element import ReferenceElement
 from .forms import Ctx
@@ -41,14 +42,15 @@ class QuadratureDomain:
     )
 
     def __init__(self, space: FunctionSpace, quad_degree: int, cells=None,
-                 dtype=torch.float64, device="cpu", weight=None):
-        """``weight``: optional callable x (m, dim) -> (m,) multiplying the
+                 dtype=torch.float64, device=None, weight=None):
+        """``device=None`` is the card (the CPU needs ``device="cpu"``).
+        ``weight``: optional callable x (m, dim) -> (m,) multiplying the
         integration measure (e.g. ``lambda x: 2*pi*x[:, 0]`` for axisymmetry)."""
         mesh = space.mesh
         self.space = space
         self.quad_degree = quad_degree
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cells = (
             np.arange(mesh.num_cells, dtype=np.int32)
             if cells is None

@@ -187,7 +187,7 @@ def assemble_body_force(space: FunctionSpace, value, quad_degree=4, cells=None):
     """Assemble the body-load vector ∫ f · v dx (constant or callable f)."""
     from .assembly import QuadratureDomain
 
-    dom = QuadratureDomain(space, quad_degree, cells)  # on the CPU, float64
+    dom = QuadratureDomain(space, quad_degree, cells, device="cpu")  # float64
     ncomp = space.ncomp
     x_q = dom.x_q.numpy()
     if callable(value):

@@ -47,6 +47,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .cuda_build import check, function
 
 LANE = 128
@@ -159,11 +160,12 @@ def _set_compact(plan: BandedTakePlan, pos: np.ndarray, idx: np.ndarray) -> None
 
 
 def _plan_device(device) -> torch.device:
-    """The plan's device. The take kernels launch on the current CUDA
+    """The plan's device: ``None`` is the card (the CPU needs
+    ``device="cpu"``). The take kernels launch on the current CUDA
     device's current stream and enter no device context, so a CUDA plan must
     be made on the current device: checked here, once, rather than at the
     first take."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is not None and dev.index != torch.cuda.current_device():
         raise ValueError(
             f"banded take: plan device {dev} is not the current CUDA device "
@@ -174,7 +176,7 @@ def _plan_device(device) -> torch.device:
 
 def plan_banded_take(
     idx, n_src, chunk=1024, max_R=64, max_patch_frac=0.20, row_quantile=0.99,
-    sub=SUB, device="cpu",
+    sub=SUB, device=None,
 ) -> BandedTakePlan | None:
     """Plan a banded take. ``idx``: (N,) or (N, K) int array, entries in
     [0, n_src) or -1 (skip). Each layer k gets its own per-chunk window.
@@ -256,7 +258,7 @@ def plan_banded_take(
 
 
 def plan_slotwise_assembly(
-    dofmap, ndofs, chunk=1024, max_R=64, k_quantile=0.99, sub=SUB, device="cpu"
+    dofmap, ndofs, chunk=1024, max_R=64, k_quantile=0.99, sub=SUB, device=None
 ):
     """Plan scatter-add assembly y[dm[e, i]] += vals[i, e] as ONE banded take
     over FEATURE-MAJOR (nd, ne) element values, flattened.
@@ -265,6 +267,7 @@ def plan_slotwise_assembly(
     gives k_i layers of (ndofs,) indices into cell space, offset by i*ne.
     ``k_quantile`` sizes k_i; the few max-valence dofs spill their excess
     occurrences into the patch list. Returns the plan or None."""
+    device = _plan_device(device)
     dm = np.asarray(dofmap)
     ne, nd = dm.shape
     layers = []
@@ -464,7 +467,7 @@ class SumPlan:
         return self.csr_idx.device
 
 
-def plan_fixed_sum(target, n_out, device="cpu") -> SumPlan:
+def plan_fixed_sum(target, n_out, device=None) -> SumPlan:
     """Plan the fixed-order sum of values landing on ``target`` (any shape,
     entries in [0, n_out)). A CUDA ``device`` must be the current device."""
     dev = _plan_device(device)

@@ -12,7 +12,8 @@ port's steps on its share of the cells; the sums across ranks are
 - :func:`global_device_mesh`: the :class:`~.sharding.DeviceMesh` over the
   group's ranks, outer axis first;
 - :func:`allgather`: a tensor in full on every rank;
-- :func:`launch`: a launcher of N worker processes on this host.
+- :func:`launch`: a launcher of N worker processes on this host;
+- :func:`exit_worker`: the end of a worker process.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import os
 import socket
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -49,22 +51,31 @@ def initialize(process_id, num_processes, coordinator, device=None, backend=None
 
     ``coordinator`` is ``"host:port"`` (a TCP store on rank 0) or a
     ``file://`` path that every rank can reach. ``device=None`` takes the
-    card ``cuda:{process_id % device_count}`` and raises without one, as
+    card ``cuda:{process_id % device_count}`` (under NCCL rank r's own
+    ``cuda:r``) and raises without one, as
     :func:`~dolfinx_materials_tpu_torch.resolve_device` does; ``"cpu"``
     runs on the CPU. ``backend`` defaults to NCCL on a card and gloo on the
-    CPU; ``backend="gloo"`` on a card lets ranks share one card (NCCL
-    refuses two ranks on one device). ``threads``: torch's intra-op threads
-    in this process (``None`` leaves them)."""
+    CPU; ``backend="gloo"`` on a card lets ranks share one card. NCCL
+    refuses two ranks on one device, so more NCCL ranks than visible cards
+    raise ``ValueError`` here, before any card or group is touched.
+    ``threads``: torch's intra-op threads in this process (``None`` leaves
+    them)."""
     import torch.distributed as dist
 
     from .. import resolve_device
 
     pid, nproc = int(process_id), int(num_processes)
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", pid % torch.cuda.device_count() if dev.index is None else dev.index)
-        torch.cuda.set_device(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if dev.type == "cuda":
+        ncards = torch.cuda.device_count()
+        if backend == "nccl" and nproc > ncards:
+            raise ValueError(
+                f"rank {pid} of {nproc}: {nproc} NCCL ranks need {nproc} cards, and "
+                f"torch.cuda.device_count() is {ncards}; run at most {ncards} ranks, one a card "
+                "(backend='gloo' lets ranks share a card)")
+        dev = torch.device("cuda", pid % ncards if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
     if threads is not None:
         torch.set_num_threads(int(threads))
     kw = {"device_id": dev} if backend == "nccl" else {}
@@ -106,6 +117,22 @@ def allgather(x):
     the ranks' blocks themselves), so this is the identity on a tensor, and
     the JAX workers' ``allgather(u)[:ndofs]`` carries over."""
     return torch.as_tensor(x)
+
+
+def exit_worker(code=0):
+    """End this worker process once its results are written: the group's
+    ranks meet at a barrier, then the process exits with ``code`` through
+    ``os._exit``, leaving the process group to the operating system.
+    Tearing down NCCL communicators between cards (``destroy_process_group``,
+    or the interpreter's exit that runs it) can hang after every collective
+    has completed: it did for two ranks on two H100s under the gVisor
+    container runtime, whatever NCCL's transport."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(int(code))
 
 
 def launch(worker_argv, num_processes, timeout=900.0, env_extra=None, cwd=None, coordinator=None):

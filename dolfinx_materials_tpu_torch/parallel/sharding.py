@@ -60,6 +60,12 @@ from .krylov import _sym_block_inv
 #: time; a longer block reads the flag less often
 CG_BLOCK = 16
 
+#: the ``all_reduce`` calls of :meth:`_Ranks.sum` in this process and the
+#: bytes they summed. A CUDA-graph capture counts the calls it records, and
+#: a replay calls nothing: :class:`MaskedCG` keeps what each capture recorded
+#: under ``recorded["all_reduce"]`` as (calls, bytes)
+REDUCED = {"calls": 0, "bytes": 0}
+
 
 @dataclass
 class DeviceMesh:
@@ -166,6 +172,8 @@ class _Ranks:
         if self.group is None:
             return t
         t = t.clone(memory_format=torch.contiguous_format)
+        REDUCED["calls"] += 1
+        REDUCED["bytes"] += t.numel() * t.element_size()
         dist.all_reduce(t, group=self.group)
         return t
 
@@ -296,7 +304,9 @@ _COUNTED = (bg.banded_take_ell, bg.banded_take_csr, j2_cuda.j2_radial_return,
 
 
 def _launch_counts():
-    return {w.__name__: (w.launches, w.f32_launches) for w in _COUNTED}
+    counts = {w.__name__: (w.launches, w.f32_launches) for w in _COUNTED}
+    counts["all_reduce"] = (REDUCED["calls"], REDUCED["bytes"])
+    return counts
 
 
 # ----------------------------------------------------------------- masked CG
@@ -315,7 +325,8 @@ class MaskedCG:
     device flag says the loop stopped. A failed capture raises. The kernel
     wrappers count their calls during a capture as they count any call; a
     replay calls no wrapper, so each graph keeps what its capture recorded
-    (``recorded``: wrapper name -> (calls, float32 calls)) and how often it
+    (``recorded``: wrapper name -> (calls, float32 calls), and
+    ``"all_reduce"`` -> (calls, bytes) of :data:`REDUCED`) and how often it
     was replayed (``replays``), and the launches of the replays are their
     product. With ``graph`` False, or on the CPU, the blocks run eagerly
     (the same bits).

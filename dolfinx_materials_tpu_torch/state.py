@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
+
 
 def _leaf_width(shape) -> int:
     return int(np.prod(shape)) if len(shape) else 1
@@ -32,14 +34,16 @@ class MaterialStateManager:
     """One buffer of batched state: gradients, fluxes and internal variables.
 
     ``gradients``/``fluxes`` are flat ``(n, total)`` tensors; ``internal`` is
-    the batched behavior state dict.
+    the batched behavior state dict. ``device=None`` is the card
+    (:func:`~dolfinx_materials_tpu_torch.resolve_device`); the CPU needs
+    ``device="cpu"``.
     """
 
-    def __init__(self, behavior, ngauss: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, behavior, ngauss: int, dtype=torch.float64, device=None):
         self.behavior = behavior
         self.n = ngauss
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gradients_size = sum(behavior.gradients.values())
         self.fluxes_size = sum(behavior.fluxes.values())
         self.gradients = torch.zeros((ngauss, self.gradients_size), dtype=dtype, device=self.device)
@@ -131,9 +135,10 @@ class MaterialStateManager:
 
 
 class DataManager:
-    """s0/s1 double buffer with commit/revert."""
+    """s0/s1 double buffer with commit/revert, on ``device`` (``None``: the
+    card)."""
 
-    def __init__(self, behavior, ngauss: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, behavior, ngauss: int, dtype=torch.float64, device=None):
         self.s0 = MaterialStateManager(behavior, ngauss, dtype, device)
         self.s1 = MaterialStateManager(behavior, ngauss, dtype, device)
         self.n = ngauss
@@ -147,13 +152,14 @@ class DataManager:
         self.s1 = self.s0.copy()
 
 
-def from_reference_array(values, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def from_reference_array(values, dtype=torch.float64, device=None) -> torch.Tensor:
     """One array of the JAX package (a state field, an external state
-    variable, a material-property field) as a tensor of this package."""
-    return torch.as_tensor(np.array(values), dtype=dtype, device=torch.device(device))
+    variable, a material-property field) as a tensor of this package, on
+    ``device`` (``None``: the card)."""
+    return torch.as_tensor(np.array(values), dtype=dtype, device=resolve_device(device))
 
 
-def from_reference_state(state_dict_of_numpy: dict, dtype=torch.float64, device="cpu") -> dict:
+def from_reference_state(state_dict_of_numpy: dict, dtype=torch.float64, device=None) -> dict:
     """State arrays of the JAX package (``Material.get_initial_state_dict()``
     there: name -> numpy array, every field flattened to ``(n, width)``) as a
     dict of tensors, ready for this package's

@@ -52,14 +52,14 @@ def plan_pair(kind, chunk):
         (dm, ndofs), (jdm_, _) = (plate_dofmap(pkg, "triangle") for pkg in (tfem, jfem))
         np.testing.assert_array_equal(dm, jdm_)
         args = dict(dofmap=dm, ndofs=ndofs, chunk=chunk, max_R=256, k_quantile=0.01)
-        return bg.plan_slotwise_assembly(**args), jbg.plan_slotwise_assembly(**args)
+        return bg.plan_slotwise_assembly(**args, device="cpu"), jbg.plan_slotwise_assembly(**args)
     dm, ndofs = index_sets()
     if kind == "asm":
         args = (dm, ndofs)
-        return (bg.plan_slotwise_assembly(*args, chunk=chunk, max_R=256),
+        return (bg.plan_slotwise_assembly(*args, chunk=chunk, max_R=256, device="cpu"),
                 jbg.plan_slotwise_assembly(*args, chunk=chunk, max_R=256))
     idx = dm.ravel() if kind == "cell" else dm.T.ravel()
-    return (bg.plan_banded_take(idx, ndofs, chunk=chunk, max_R=256),
+    return (bg.plan_banded_take(idx, ndofs, chunk=chunk, max_R=256, device="cpu"),
             jbg.plan_banded_take(idx, ndofs, chunk=chunk, max_R=256))
 
 
@@ -95,7 +95,7 @@ def overflow_plan():
     patch list, with repeated positions."""
     mesh = tfem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "triangle")
     V = tfem.FunctionSpace(mesh, degree=2, shape=(2,))
-    plan = bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256, k_quantile=0.01)
+    plan = bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256, k_quantile=0.01, device="cpu")
     return V.dofmap, V.num_dofs, plan
 
 
@@ -165,7 +165,7 @@ def test_ell_and_csr_are_bitwise_equal(kind, chunk):
 def plate_domain():
     mesh = tfem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad")
     V = tfem.FunctionSpace(mesh, degree=2, shape=(2,))
-    return V, QuadratureDomain(V, 4)
+    return V, QuadratureDomain(V, 4, device="cpu")
 
 
 @pytest.mark.parametrize("key", ["cell", "fm", "asm"])
@@ -195,7 +195,7 @@ def skewed_plan():
     idx = np.full((256, 16), -1)
     idx[:, 0] = np.arange(256)
     idx[0, 1:] = np.arange(1, 16)
-    return bg.plan_banded_take(idx, 256, chunk=256, max_R=256)
+    return bg.plan_banded_take(idx, 256, chunk=256, max_R=256, device="cpu")
 
 
 @pytest.mark.parametrize("kind,want", [

@@ -348,7 +348,7 @@ def test_take_wrappers_raise_instead_of_falling_back(card, wrapper):
     with pytest.raises(ValueError, match="expected"):
         take(table[:-1], plan)
     V = plate_space()
-    cpu_plan = bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256)
+    cpu_plan = bg.plan_slotwise_assembly(V.dofmap, V.num_dofs, chunk=1024, max_R=256, device="cpu")
     with pytest.raises(ValueError, match="plan on cpu"):
         take(table, cpu_plan)
     assert take.launches == before
@@ -408,7 +408,7 @@ def test_fixed_sum_is_one_launch_and_bitwise(card):
     assert bg.banded_take_csr.launches == before + 1
     assert torch.equal(out, bg.compact_take_reference(v, plan, "csr"))
     assert torch.equal(out, bg.fixed_sum(v, plan))
-    cpu = bg.fixed_sum(torch.as_tensor(vals), bg.plan_fixed_sum(target, 500))
+    cpu = bg.fixed_sum(torch.as_tensor(vals), bg.plan_fixed_sum(target, 500, device="cpu"))
     assert torch.equal(out.cpu(), cpu)
 
 
@@ -685,3 +685,48 @@ def test_blocked_thermo_step_and_host_solve_card_vs_cpu(card):
     assert (c[0], c[2], c[3]) == (h[0], h[2], h[3])
     for a, b in ((c[1], h[1]), (c[4], h[4])):
         assert float(np.abs(a - b).max()) <= 1e-8 * np.abs(b).max()
+
+
+#: two NCCL ranks, one a card: a summed vector, the same sum captured in a
+#: CUDA graph and replayed, then the end of the worker
+TWO_RANKS = """
+import sys
+import torch
+import torch.distributed as dist
+from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
+pid, n, coord = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dev = mp.initialize(pid, n, coord)
+x = torch.full((1024,), float(pid + 1), device=dev, dtype=torch.float64)
+dist.all_reduce(x)
+side = torch.cuda.Stream()
+side.wait_stream(torch.cuda.current_stream())
+with torch.cuda.stream(side):
+    y = x.clone()
+    dist.all_reduce(y)
+torch.cuda.current_stream().wait_stream(side)
+graph = torch.cuda.CUDAGraph()
+with torch.cuda.graph(graph, stream=side):
+    y = x.clone()
+    dist.all_reduce(y)
+graph.replay()
+torch.cuda.synchronize()
+print(f"rank {pid}: {x[0].item()} {y[0].item()}", flush=True)
+mp.exit_worker()
+"""
+
+
+def test_two_nccl_ranks_sum_and_end(card):
+    """Two NCCL ranks on two cards sum a vector, eagerly and in a replayed
+    CUDA graph, and their processes end: ``exit_worker`` skips NCCL's
+    teardown, which hung between two H100s after the last collective."""
+    import os
+    import sys
+
+    from dolfinx_materials_tpu_torch.parallel import multiprocess as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    outs = mp.launch([sys.executable, "-c", TWO_RANKS], 2, timeout=120, cwd=repo)
+    for pid, out in enumerate(outs):
+        assert f"rank {pid}: 3.0 6.0" in out, out[-2000:]

@@ -78,7 +78,7 @@ def plate():
     """Both packages' 16x32 P2 plates with random fields and tangents."""
     tV = tfem.FunctionSpace(tfem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
     jV = jfem.FunctionSpace(jfem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
-    tdom, jdom = tasm.QuadratureDomain(tV, 4), jasm.QuadratureDomain(jV, 4)
+    tdom, jdom = tasm.QuadratureDomain(tV, 4, device="cpu"), jasm.QuadratureDomain(jV, 4)
     assert tdom.banded_active
     rng = np.random.default_rng(0)
     n = tdom.num_points

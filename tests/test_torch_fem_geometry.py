@@ -67,14 +67,14 @@ def test_curved_domain_matches_jax(name, degree):
     jV, tV = jfem.FunctionSpace(jm, degree, (jm.dim,)), tfem.FunctionSpace(tm, degree, (tm.dim,))
     np.testing.assert_allclose(tV.node_coords, jV.node_coords, rtol=0, atol=1e-15)
     np.testing.assert_array_equal(tV.dofmap, jV.dofmap)
-    jd, td = JDomain(jV, 2 * degree), TDomain(tV, 2 * degree)
+    jd, td = JDomain(jV, 2 * degree), TDomain(tV, 2 * degree, device="cpu")
     for attr in ("x_q", "dNdx", "wdetJ", "cell_volumes"):
         want = np.asarray(getattr(jd, attr))
         got = getattr(td, attr).numpy()
         err = np.abs(got - want).max() / np.abs(want).max()
         assert err <= 1e-13, f"{attr}: {err:.2e}"
     # the curved area/volume differs from the straight one
-    straight = TDomain(tfem.FunctionSpace(build(tfem), degree, ()), 2 * degree)
+    straight = TDomain(tfem.FunctionSpace(build(tfem), degree, ()), 2 * degree, device="cpu")
     assert abs(float(td.cell_volumes.sum() - straight.cell_volumes.sum())) > 1e-3
 
 
@@ -82,10 +82,10 @@ def test_curved_annulus_area_is_exact_to_quadrature():
     """The quarter annulus of radii 1 and 2 has area 3 pi / 4; the straight
     chords miss it by O(h^2), the degree-2 geometry by far less."""
     build, transform = CURVED["annulus_quad"]
-    curved = TDomain(tfem.FunctionSpace(tfem.curve_mesh(build(tfem), transform), 1, ()), 4)
+    curved = TDomain(tfem.FunctionSpace(tfem.curve_mesh(build(tfem), transform), 1, ()), 4, device="cpu")
     chords = build(tfem)
     chords.points = transform(chords.points)
-    straight = TDomain(tfem.FunctionSpace(chords, 1, ()), 4)
+    straight = TDomain(tfem.FunctionSpace(chords, 1, ()), 4, device="cpu")
     exact = 3 * np.pi / 4
     err_c = abs(float(curved.cell_volumes.sum()) - exact)
     err_s = abs(float(straight.cell_volumes.sum()) - exact)
@@ -127,7 +127,7 @@ def test_set_internal_from_flat_matches_jax():
     el = (70e3, 0.3)
     jbeh = jmodels.vonMisesIsotropicHardening(jmodels.LinearElasticIsotropic(*el), jmodels.LinearHardening(350.0, 2e3))
     tbeh = tmodels.vonMisesIsotropicHardening(tmodels.LinearElasticIsotropic(*el), tmodels.LinearHardening(350.0, 2e3))
-    js, ts = JState(jbeh, n, jnp.float64), TState(tbeh, n)
+    js, ts = JState(jbeh, n, jnp.float64), TState(tbeh, n, device="cpu")
     flat = np.random.default_rng(0).normal(size=(n, ts.internal_size))
     assert ts.internal_size == js.internal_size == 7
     js.set_internal_from_flat(jnp.asarray(flat))

@@ -228,7 +228,7 @@ def test_read_msh_matches_jax(version, reorder, tmp_path):
     # the unit square's area, on the read (and renumbered) mesh
     from dolfinx_materials_tpu_torch.fem.assembly import QuadratureDomain, assemble_scalar
 
-    dom = QuadratureDomain(tfem.FunctionSpace(tmesh, 1, ()), 2)
+    dom = QuadratureDomain(tfem.FunctionSpace(tmesh, 1, ()), 2, device="cpu")
     np.testing.assert_allclose(float(assemble_scalar(dom, 1.0)), 1.0, rtol=1e-12)
 
 

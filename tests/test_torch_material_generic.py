@@ -188,7 +188,7 @@ def run_both(name, n=N, seed=11):
             jmat.data_manager.s0[k] = v
         # the JAX package's state dict is what crosses over
         mat.set_initial_state_dict(
-            {k: v for k, v in from_reference_state(jmat.get_initial_state_dict()).items()
+            {k: v for k, v in from_reference_state(jmat.get_initial_state_dict(), device="cpu").items()
              if k in mat.internal_state_variables}
         )
     want = jmat.batched_constitutive_update(jnp.asarray(eps), {}, jmat.data_manager.s0.internal, dt)
@@ -340,7 +340,7 @@ def test_rotated_orthotropic_matches_jax(per_point):
     jmat.rotation_matrix = jnp.asarray(R)
     s_j, _, C_j = jmat.integrate(jnp.asarray(eps))
     mat = tmat(tmodels.LinearElasticOrthotropic(*ORTHO))
-    mat.rotation_matrix = from_reference_array(R)
+    mat.rotation_matrix = from_reference_array(R, device="cpu")
     s, _, C = mat.integrate(eps)
     assert float(np.abs(s.numpy() - np.asarray(s_j)).max()) <= 1e-10 * float(np.abs(np.asarray(s_j)).max())
     assert float(np.abs(C.numpy() - np.asarray(C_j)).max()) <= 1e-10 * 100e3
@@ -436,7 +436,7 @@ def test_spatially_varying_material_property():
     sig1, _, _ = mat.integrate(eps)
     Evar = np.full(n, E)
     Evar[n // 2:] = 2 * E  # per-point array: doubled stiffness on the second half
-    mat.update_material_property("YoungModulus", from_reference_array(Evar))
+    mat.update_material_property("YoungModulus", from_reference_array(Evar, device="cpu"))
     sig2, _, Ct2 = mat.integrate(eps)
     np.testing.assert_allclose(sig2.numpy()[: n // 2], sig1.numpy()[: n // 2])
     np.testing.assert_allclose(sig2.numpy()[n // 2:], 2 * sig1.numpy()[n // 2:], rtol=1e-12)
@@ -484,7 +484,7 @@ def test_external_state_variable_and_extra_tangent_blocks():
     # unset ESV reads as zero, a scalar broadcasts, an array is per point
     for value in (None, 300.0, T):
         if value is not None:
-            mat.update_external_state_variable("Temperature", value if np.ndim(value) == 0 else from_reference_array(value))
+            mat.update_external_state_variable("Temperature", value if np.ndim(value) == 0 else from_reference_array(value, device="cpu"))
             jmat.update_external_state_variable("Temperature", value)
         s, isv, Ct = mat.integrate(eps)
         s_j, isv_j, Ct_j = jmat.integrate(jnp.asarray(eps))

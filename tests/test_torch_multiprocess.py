@@ -170,8 +170,6 @@ def worker(argv):
     """``OUT CASES pid nproc coordinator``: CASES a comma list of update,
     plate, plate22 (the plate on the (dcn, ici) = (2, 2) mesh), blocked,
     general and fefp; rank 0 writes every result to OUT."""
-    import torch.distributed as dist
-
     from dolfinx_materials_tpu_torch.parallel import device_mesh
 
     out_file, cases, pid, nproc, coord = argv
@@ -194,7 +192,7 @@ def worker(argv):
             out.update(fefp_case(mesh, device))
     if int(pid) == 0:
         np.savez(out_file, **{k: (v.numpy() if torch.is_tensor(v) else np.asarray(v)) for k, v in out.items()})
-    dist.destroy_process_group()
+    mp.exit_worker()
 
 
 # -------------------------------------------------------------- the runs
@@ -466,6 +464,28 @@ def test_device_mesh_needs_a_group_and_initialize_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             mp.initialize(0, 1, "127.0.0.1:1")
+
+
+def test_initialize_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    """On a host that shows two cards, rank 2 of 3 NCCL ranks raises a
+    ValueError naming the rank, the world size and the card count, before
+    it selects a card or starts a process group; over gloo three ranks may
+    share the two cards (rank 2 on cuda:0)."""
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(mp, "_LOCAL", {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", str(d))))
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw: calls.append(("init", backend)))
+    with pytest.raises(ValueError, match=r"rank 2 of 3.*device_count\(\) is 2"):
+        mp.initialize(2, 3, "127.0.0.1:1")
+    with pytest.raises(ValueError, match="rank 2 of 3"):
+        mp.initialize(2, 3, "127.0.0.1:1", backend="nccl")
+    assert calls == [] and not dist.is_initialized()
+    assert mp.initialize(2, 3, "127.0.0.1:1", backend="gloo", threads=None) == torch.device("cuda", 0)
+    assert calls == [("set_device", "cuda:0"), ("init", "gloo")]
 
 
 if __name__ == "__main__":

@@ -49,7 +49,7 @@ MESHES = {
 def domains(name, quad_degree=4):
     jV = jfem.FunctionSpace(MESHES[name](jfem), 2, (2,))
     tV = tfem.FunctionSpace(MESHES[name](tfem), 2, (2,))
-    return jasm.QuadratureDomain(jV, quad_degree), tasm.QuadratureDomain(tV, quad_degree)
+    return jasm.QuadratureDomain(jV, quad_degree), tasm.QuadratureDomain(tV, quad_degree, device="cpu")
 
 
 def field(dom, k=3):
@@ -83,7 +83,7 @@ def test_project_cg_on_the_banded_route_matches_jax():
     vals = field(td, k=1)
     _, want = jasm.project_cg(jd, jnp.asarray(vals), degree=2)
     tspace, got = tasm.project_cg(td, torch.as_tensor(vals), degree=2)
-    assert tasm.QuadratureDomain(tspace, 2, td.cells).banded_active
+    assert tasm.QuadratureDomain(tspace, 2, td.cells, device="cpu").banded_active
     close(got, want)
 
 

@@ -93,7 +93,7 @@ def test_start_from_carried_plastic_state():
     assert state["p"].max() > 1e-3
 
     tp = quickstart("torch", n=8, options=opts)
-    tp[1].material.set_initial_state_dict(from_reference_state(state))
+    tp[1].material.set_initial_state_dict(from_reference_state(state, device="cpu"))
     s0 = tp[1].material.data_manager.s0
     np.testing.assert_array_equal(s0["eps_p"].numpy(), state["eps_p"])
     assert s0["p"].dtype == torch.float64

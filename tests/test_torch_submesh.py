@@ -123,9 +123,10 @@ def test_make_B_matches_jax(degree):
     """d(expr)/d(u_e) per point on a cell subset, (ne, nq, size, ndof_el),
     for the Mandel strain and the deformation gradient, to 1e-12."""
     out = {}
-    for name, fem, forms, Dom, xp in (("torch", tfem, tforms, TDomain, torch), ("jax", jfem, jforms, JDomain, jnp)):
+    for name, fem, forms, Dom, xp, kw in (("torch", tfem, tforms, TDomain, torch, {"device": "cpu"}),
+                                          ("jax", jfem, jforms, JDomain, jnp, {})):
         V = fem.FunctionSpace(fem.create_rectangle((0, 0), (1.0, 0.5), (6, 3), "quad"), degree, (2,))
-        dom = Dom(V, 2 * degree, np.arange(0, 18, 2))
+        dom = Dom(V, 2 * degree, np.arange(0, 18, 2), **kw)
         u = xp.asarray(np.random.default_rng(3).standard_normal(V.num_dofs))
         out[name] = [np.asarray(dom.make_B(e)(u)) for e in (forms.mandel_strain_2d(), forms.deformation_gradient_2d())]
     for a, b in zip(out["torch"], out["jax"]):
