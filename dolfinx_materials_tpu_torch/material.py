@@ -278,28 +278,30 @@ class Material:
         return dm, gradients, x, props, rot
 
     def _store(self, dm, gradients, flux, new_state):
-        s1 = dm.s1
-        s1.gradients = gradients
-        s1.fluxes = flux
-        s1.internal = dict(new_state)
-        return s1.internal_state_variables
+        with timer("material: store", device=self.device):
+            s1 = dm.s1
+            s1.gradients = gradients
+            s1.fluxes = flux
+            s1.internal = dict(new_state)
+            return s1.internal_state_variables
 
     def integrate(self, gradients, dt=0.0):
         """Batched constitutive update on ``gradients (n, sum(grad sizes))``.
 
         Returns ``(flux (n, nflux), isv_flat (n, nisv), Ct_flat (n, sum block
         sizes))`` and stores the trial state in ``data_manager.s1``."""
-        dm, gradients, x, props, rot = self._prepare(gradients)
-        with timer(f"{self.name}: constitutive update"):
-            if self._fast_update is not None:
-                flux, Ct, new_state = self._fast_update(x, dm.s0.internal, dt)
-                Ct = Ct.reshape(dm.n, -1)
-            else:
-                flux, Ct, new_state = self.batched_constitutive_update(x, props, dm.s0.internal, dt)
-        if rot is not None:
-            flux = self._rotate_cols(flux, self.fluxes, rot, True)
-            Ct = self._rotate_tangent(Ct, rot)
-        return flux, self._store(dm, gradients, flux, new_state), Ct
+        with timer("material: integrate", device=self.device):
+            dm, gradients, x, props, rot = self._prepare(gradients)
+            with timer(f"{self.name}: constitutive update", device=self.device):
+                if self._fast_update is not None:
+                    flux, Ct, new_state = self._fast_update(x, dm.s0.internal, dt)
+                    Ct = Ct.reshape(dm.n, -1)
+                else:
+                    flux, Ct, new_state = self.batched_constitutive_update(x, props, dm.s0.internal, dt)
+            if rot is not None:
+                flux = self._rotate_cols(flux, self.fluxes, rot, True)
+                Ct = self._rotate_tangent(Ct, rot)
+            return flux, self._store(dm, gradients, flux, new_state), Ct
 
     def integrate_flux_only(self, gradients, dt=0.0):
         """Tangent-free batched update: ``(flux (n, nflux), isv_flat)``.
@@ -308,7 +310,7 @@ class Material:
         stored in s1) but skips the jacfwd tangent pass: the cheap evaluation
         line-search backtracking needs."""
         dm, gradients, x, props, rot = self._prepare(gradients)
-        with timer(f"{self.name}: constitutive update (flux-only)"):
+        with timer(f"{self.name}: constitutive update (flux-only)", device=self.device):
             if self._fast_flux is not None:
                 flux, new_state = self._fast_flux(x, dm.s0.internal, dt)
             elif self._fast_update is not None:

@@ -52,6 +52,7 @@ from ..ops import banded_gather as bg
 from ..ops import j2_cuda
 from ..ops.banded_gather import fixed_sum, gather_map, plan_fixed_sum
 from ..state import _slices
+from ..utils.timers import count, timer
 from .coarse import _coord_agg_modes, _p1_coarse
 from .krylov import _sym_block_inv
 
@@ -303,6 +304,13 @@ _COUNTED = (bg.banded_take_ell, bg.banded_take_csr, j2_cuda.j2_radial_return,
             j2_cuda.j2_radial_return_factored)
 
 
+def _read(value, kind=float):
+    """``kind(value)`` of a device value: a host read, counted in the
+    ``"host reads"`` counter."""
+    count("host reads")
+    return kind(value)
+
+
 def _launch_counts():
     counts = {w.__name__: (w.launches, w.f32_launches) for w in _COUNTED}
     counts["all_reduce"] = (REDUCED["calls"], REDUCED["bytes"])
@@ -380,7 +388,17 @@ class MaskedCG:
                     tol2=(self.cg_rtol * self.cg_rtol) * rz.abs())
 
     def solve(self, ops, b):
-        """``(x, iterations)`` of CG on ``b``: one host read per block."""
+        """``(x, iterations)`` of CG on ``b``: one host read per block. Adds
+        the iterations to the ``"cg: iterations"`` counter, and to ``"cg:
+        budget iterations"`` where they reached ``n_cg``."""
+        with timer("cg: solve"):
+            x, its = self._solve(ops, b)
+        count("cg: iterations", its)
+        if its == self.n_cg:
+            count("cg: budget iterations", its)
+        return x, its
+
+    def _solve(self, ops, b):
         st = self._start(ops, b)
         self.blocks = 0
         if self.graph and b.is_cuda:
@@ -393,17 +411,18 @@ class MaskedCG:
             for k, t in st.items():
                 g["state"][k].copy_(t)
             while True:
-                g["graph"].replay()
+                with timer("cg: replay", device=b.device):
+                    g["graph"].replay()
                 g["replays"] += 1
                 self.blocks += 1
-                if not bool(g["cont"]):
+                if not _read(g["cont"], bool):
                     break
-            return g["state"]["x"].clone(), int(g["state"]["it"])
+            return g["state"]["x"].clone(), _read(g["state"]["it"], int)
         while True:
             st, cont = self._iterations(ops, st, self.block)
             self.blocks += 1
-            if not bool(cont):
-                return st["x"], int(st["it"])
+            if not _read(cont, bool):
+                return st["x"], _read(st["it"], int)
 
     def _graph_for(self, ops, st):
         key = (repr(_signature(ops)), repr(_signature(st)))
@@ -774,7 +793,7 @@ def make_sharded_newton_step_general(
             flux, _, st_new = term.integrate(term.inputs(u, dt), st, dt, inp.dt, True)
             R = R + term.fns[dt]["residual"](u, term.fields(flux, st_new, sc))
         R = torch.where(mask, zero(dt), mine(R) - inp.f_ext).to(u_w.dtype)
-        return float(torch.sqrt(dot(R, R)))
+        return _read(torch.sqrt(dot(R, R)))
 
     def assemble_diag(K_es, dtype):
         d = torch.zeros(ndofs, dtype=dtype, device=device)
@@ -902,11 +921,12 @@ def make_sharded_newton_step_general(
             du = du * s_vec
         du = du.to(u.dtype)
         alpha, k = 1.0, 0
-        n_try = rnorm(u + du, inp, mask)
-        while (not np.isfinite(n_try) or n_try >= (1 - 1e-4 * alpha) * res) and k < n_backtracks:
-            alpha *= 0.5
-            n_try = rnorm(u + alpha * du, inp, mask)
-            k += 1
+        with timer("fused: line search"):
+            n_try = rnorm(u + du, inp, mask)
+            while (not np.isfinite(n_try) or n_try >= (1 - 1e-4 * alpha) * res) and k < n_backtracks:
+                alpha *= 0.5
+                n_try = rnorm(u + alpha * du, inp, mask)
+                k += 1
         if np.isfinite(n_try) and n_try < res:
             return u + alpha * du, cg_k
         return u, cg_k
@@ -929,6 +949,10 @@ def make_sharded_newton_step_general(
         return out
 
     def step(u, states, bc_mask, bc_vals, dt=0.0, scales=None, f_ext=None):
+        with timer("fused: step"):
+            return _step(u, states, bc_mask, bc_vals, dt, scales, f_ext)
+
+    def _step(u, states, bc_mask, bc_vals, dt, scales, f_ext):
         mask = mine(torch.as_tensor(np.asarray(bc_mask) if not torch.is_tensor(bc_mask) else bc_mask,
                                     device=device).to(torch.bool), True)
         vals = mine(torch.as_tensor(bc_vals, device=device).to(f_hi))
@@ -955,7 +979,7 @@ def make_sharded_newton_step_general(
             inp32 = _Inputs([_tmap(lo, st) for st in states], scales, lo(f_ext), float(dt), f_K)
             u32 = u.to(f_lo)
             R32, K_es, _ = evaluate(u32, inp32, mask, False)
-            res = float(torch.sqrt(dot(R32, R32)))
+            res = _read(torch.sqrt(dot(R32, R32)))
             res032 = max(res, 1e-30)
             Ac_inv = build_coarse(K_es, mask) if two_level else None
             it32 = cg32 = 0
@@ -966,10 +990,10 @@ def make_sharded_newton_step_general(
             while it32 < n_newton - 1 and res > max(rtol, 2e-5) * res032 + atol and progress:
                 u_new, cg_k = newton_update(u32, R32, K_es, res, inp32, mask, Ac_inv)
                 R32, K_es, _ = evaluate(u_new, inp32, mask, False)
-                res_n = float(torch.sqrt(dot(R32, R32)))
+                res_n = _read(torch.sqrt(dot(R32, R32)))
                 # the line search moved u on some rank (its slice, split)
                 moved = (u_new != u32).any().to(f_lo)
-                progress = bool(ranks.sum(moved) > 0 if shard_dofs else moved > 0) and res_n < 0.7 * res
+                progress = _read(ranks.sum(moved) > 0 if shard_dofs else moved > 0, bool) and res_n < 0.7 * res
                 u32, res = u_new, res_n
                 it32 += 1
                 cg32 += cg_k
@@ -979,11 +1003,11 @@ def make_sharded_newton_step_general(
         R, K_es, st_out = evaluate(u, inp, mask, mixed)
         info["cg_dtype"] = K_es[0].dtype
         res_t = torch.sqrt(dot(R, R))
-        res = float(res_t)
+        res = _read(res_t)
         if res032 is not None:
             # the step's true entering residual, measured by the warmup
             res_entering = torch.full((), max(res032, 1e-30), dtype=f_hi, device=device)
-            res0 = float(res_entering)
+            res0 = _read(res_entering)
         else:
             res_entering = res_t
             res0 = max(res, 1e-30)
@@ -993,7 +1017,7 @@ def make_sharded_newton_step_general(
             u, cg_k = newton_update(u, R, K_es, res, inp, mask, Ac_inv)
             R, K_es, st_out = evaluate(u, inp, mask, mixed)
             res_t = torch.sqrt(dot(R, R))
-            res = float(res_t)
+            res = _read(res_t)
             n_it += 1
             cg_sum += cg_k
         n_total, cg_total = n_it + info["warmup_newton"], cg_sum + info["warmup_cg"]

@@ -73,10 +73,10 @@ class QuadratureMap:
         missing = [g for g in self.material.gradients if g not in self.gradient_exprs]
         if missing:
             raise RuntimeError(f"gradients not registered: {missing}")
-        with timer("qmap: external state variable update"):
+        with timer("qmap: external state variable update", device=self.device):
             for name in self.esv_exprs:
                 self.material.update_external_state_variable(name, self._eval_fns[name](u))
-        with timer("qmap: gradients evaluation"):
+        with timer("qmap: gradients evaluation", device=self.device):
             grads = [self._eval_fns[g](u) for g in self.material.gradients]
             return torch.cat(grads, dim=1) if len(grads) > 1 else grads[0]
 
@@ -85,7 +85,7 @@ class QuadratureMap:
         device-resident flux/tangents."""
         u = torch.as_tensor(u, dtype=self.dtype, device=self.device)
         grad_vals = self._gradient_values(u)
-        with timer("qmap: material integration"):
+        with timer("qmap: material integration", device=self.device):
             flux, isv, Ct = self.material.integrate(grad_vals, self.dt)
         if self.check_nans:
             # one reduced scalar per array, one host sync in all
@@ -106,7 +106,7 @@ class QuadratureMap:
         left untouched."""
         u = torch.as_tensor(u, dtype=self.dtype, device=self.device)
         grad_vals = self._gradient_values(u)
-        with timer("qmap: material integration (flux-only)"):
+        with timer("qmap: material integration (flux-only)", device=self.device):
             flux, _ = self.material.integrate_flux_only(grad_vals, self.dt)
         self._flux = flux
         return flux

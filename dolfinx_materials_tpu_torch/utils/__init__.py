@@ -1,3 +1,12 @@
-"""Utilities: timers."""
+"""Utilities: timers, counters and tracing."""
 
-from .timers import list_timings, reset_timings, timer, timing  # noqa: F401
+from .timers import (  # noqa: F401
+    count,
+    counters,
+    device_timing,
+    list_timings,
+    reset_timings,
+    set_tracing,
+    timer,
+    timing,
+)
