@@ -26,7 +26,13 @@ exits non-zero before the result line is printed:
    128x256 P2 plate's cell, fm and asm plans, a 64x128 triangle plate's
    assembly plan with overflow patches and the N = 10 P2-tet Ogden block's
    three plans, in f32 and f64; each timed per call, on the device (a CUDA
-   graph of back-to-back takes) and on the host;
+   graph of back-to-back takes) and on the host; then the fused step's
+   aggregate coarse correction (``[coarse]``): the two kernels of
+   ``ops/coarse_correction.py`` on the 128x256 plate's 22-box coarse space
+   against their plain versions (1e-13 f64, 1e-5 f32 of scale) and bitwise
+   from run to run, each timed as the takes are, beside its bound and the
+   plain path it replaced (gather, row sum, dense product, gather, mask and
+   add: the same steps in one CUDA graph);
 4. the J2 plate slice on a 16x32 mesh, 3 load steps, on the card and on the
    CPU: displacement and plastic strain agree to 1e-8, Newton counts equal;
 5. the main path at full width: the 128x256 P2 plate (294,912 Gauss points,
@@ -611,6 +617,93 @@ def phase_take(nx, tet_n):
     return rows
 
 
+def coarse_bytes(plan, dtype, kernel, scaled):
+    """The least traffic of one call: every input read once, the output
+    written once (the mask 1 byte a dof, the lists 4 bytes an entry)."""
+    n, nc, s = plan.ndofs, plan.ncoarse, torch.finfo(dtype).bits // 8
+    shared = n * plan.nmodes * s + 4 * (n + plan.nagg + 1) + n + (n * s if scaled else 0)
+    if kernel == "restrict":
+        return shared + n * s + nc * s  # r in, rc out
+    return shared + nc * nc * s + nc * s + 2 * n * s  # Ac_inv, rc, z in, out
+
+
+def coarse_ops(plan, kernel):
+    """A multiply and an add per mode weight, and per entry of Ac_inv."""
+    mw = 2 * plan.ndofs * plan.nmodes
+    return mw if kernel == "restrict" else mw + 2 * plan.ncoarse ** 2
+
+
+def phase_coarse(nx):
+    """The aggregate coarse correction's two kernels on the nx x 2nx plate's
+    coarse space (FUSED_BOXES boxes a side, "trans" modes), f64 as the plate
+    cell calls them (mask, no scaling, add to z) and f32 as a mixed CG would
+    (mask and scaling): against the plain versions, bitwise from run to run,
+    each timed beside its bound; the plain pair (the path the kernels
+    replaced) timed the same way as the yardstick."""
+    from dolfinx_materials_tpu_torch import fem
+    from dolfinx_materials_tpu_torch.ops import coarse_correction as cc
+    from dolfinx_materials_tpu_torch.parallel.coarse import _coord_agg_modes
+
+    V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (LX, LY), (nx, 2 * nx), "quad"), 2, (2,))
+    ncoarse, agg_np, W_np = _coord_agg_modes(V, FUSED_BOXES, modes="trans")
+    plan = cc.plan_aggregates(agg_np, V.ncomp, W_np.shape[2], device=DEVICE)
+    n = V.num_dofs
+    log(f"[coarse] {nx}x{2 * nx} P2 plate, {n} dofs, {plan.nagg} aggregates of {n // plan.nagg} dofs on average "
+        f"(largest {int(plan.agg_ptr.diff().max())}), {ncoarse} coarse dofs; call_ms: CUDA events around one call; "
+        f"device_ms: {TAKE_GRAPH} calls in one CUDA graph; host_us: {TAKE_HOST} un-synchronised calls")
+    rng = np.random.default_rng(11)
+    G = rng.standard_normal((ncoarse, ncoarse))
+    rows = {}
+    for dtype, scaled in ((torch.float64, False), (torch.float32, True)):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)  # noqa: E731
+        r, z, W = t(rng.standard_normal(n)), t(rng.standard_normal(n)), t(W_np)
+        s_inv = t(rng.uniform(0.5, 2.0, n)) if scaled else None
+        mask = torch.as_tensor(rng.random(n) < 0.01, device=DEVICE)
+        A = t(G @ G.T / ncoarse + np.eye(ncoarse))
+        # the layout the step held Ac_inv in before the kernels: column-major,
+        # as the card's inverse returns it (cuBLAS's gemv reads it by columns)
+        A_cm = A.T.contiguous().T
+        rc = cc.coarse_restrict(r, plan, W, mask, s_inv)
+        out = cc.coarse_prolong(rc, A, plan, W, z, mask, s_inv)
+        rc_p = cc.coarse_restrict_reference(r, plan, W, mask, s_inv)
+        out_p = cc.coarse_prolong_reference(rc, A, plan, W, z, mask, s_inv)
+        torch.cuda.synchronize()
+        tol = 1e-13 if dtype == torch.float64 else 1e-5
+        err = {"restrict": rel_err(rc, rc_p, rc_p.abs().max()), "prolong": rel_err(out, out_p, out_p.abs().max())}
+        bitwise = (torch.equal(rc, cc.coarse_restrict(r, plan, W, mask, s_inv))
+                   and torch.equal(out, cc.coarse_prolong(rc, A, plan, W, z, mask, s_inv)))
+        calls = {"restrict": (lambda: cc.coarse_restrict(r, plan, W, mask, s_inv),
+                              lambda: cc.coarse_restrict_reference(r, plan, W, mask, s_inv)),
+                 "prolong": (lambda: cc.coarse_prolong(rc, A, plan, W, z, mask, s_inv),
+                             lambda: cc.coarse_prolong_reference(rc, A, plan, W, z, mask, s_inv))}
+        for k, (kern, plain) in calls.items():
+            row = dict(err=err[k], call=cuda_ms(kern), device=graph_ms(kern), host=host_us(kern),
+                       plain=cuda_ms(plain), plain_device=graph_ms(plain),
+                       bound=bound_ms(coarse_bytes(plan, dtype, k, scaled), coarse_ops(plan, k), dtype))
+            rows[(dtype, k)] = row
+            log(f"[coarse] {str(dtype)[6:]:8s} {k:9s} err={row['err']:.1e} bitwise={bitwise} "
+                f"call_ms={row['call']:.4f} device_ms={row['device']:.4f} host_us={row['host']:.1f} "
+                f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}, {1e-6 * coarse_bytes(plan, dtype, k, scaled):.2f} "
+                f"MB) plain_ms={row['plain']:.4f} plain_device_ms={row['plain_device']:.4f}")
+
+        def pair():
+            cc.coarse_prolong(cc.coarse_restrict(r, plan, W, mask, s_inv), A, plan, W, z, mask, s_inv)
+
+        def plain_pair(Ac_inv):
+            cc.coarse_prolong_reference(cc.coarse_restrict_reference(r, plan, W, mask, s_inv), Ac_inv, plan, W,
+                                        z, mask, s_inv)
+
+        both = dict(device=graph_ms(pair), plain_device=graph_ms(lambda: plain_pair(A)),
+                    parent_device=graph_ms(lambda: plain_pair(A_cm)))
+        rows[(dtype, "pair")] = both
+        log(f"[coarse] {str(dtype)[6:]:8s} the correction: kernels device_ms={both['device']:.4f}; the plain path "
+            f"it replaced device_ms={both['parent_device']:.4f} on a column-major Ac_inv, as the step held it "
+            f"({both['parent_device'] / both['device']:.1f}x), {both['plain_device']:.4f} on a row-major one")
+        if not (bitwise and max(err.values()) <= tol):
+            raise AssertionError(f"coarse correction kernels disagree with their plain versions: {dtype}")
+    return rows
+
+
 # ------------------------------------------------------------ phases 4 and 5
 def build_plate(nx, device, general=False):
     """The plane-strain J2 plate of demos/plane_elastoplasticity.py: bottom
@@ -671,34 +764,26 @@ def phase_slice_cpu_vs_card():
         raise AssertionError("16x32 slice: card and CPU runs disagree")
 
 
-def reset_counts():
-    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
-    from dolfinx_materials_tpu_torch.ops import j2_cuda
+def _counted():
+    """The kernel wrappers the fused step counts (``sharding._COUNTED``): the
+    J2 kernels, the two takes and the two coarse-correction kernels."""
+    from dolfinx_materials_tpu_torch.parallel.sharding import _COUNTED
 
-    for fn in (j2_cuda.j2_radial_return, j2_cuda.j2_radial_return_factored,
-               bg.banded_take_ell, bg.banded_take_csr):
+    return _COUNTED
+
+
+def reset_counts():
+    for fn in _counted():
         fn.launches = 0
         fn.f32_launches = 0
 
 
 def read_f32_counts():
-    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
-    from dolfinx_materials_tpu_torch.ops import j2_cuda
-
-    return {fn.__name__: fn.f32_launches for fn in (
-        j2_cuda.j2_radial_return, bg.banded_take_ell, bg.banded_take_csr)}
+    return {fn.__name__: fn.f32_launches for fn in _counted()}
 
 
 def read_counts():
-    from dolfinx_materials_tpu_torch.ops import banded_gather as bg
-    from dolfinx_materials_tpu_torch.ops import j2_cuda
-
-    return {
-        "j2_radial_return": j2_cuda.j2_radial_return.launches,
-        "j2_radial_return_factored": j2_cuda.j2_radial_return_factored.launches,
-        "banded_take_ell": bg.banded_take_ell.launches,
-        "banded_take_csr": bg.banded_take_csr.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def phase_main(nx, nsteps0=6):
@@ -1231,8 +1316,9 @@ def phase_fused(nx, fast):
             f"newton={fast['newton'][i]} cg={fast['cg'][i]}) residual {float(rn):.4e} ({float(rn) / float(rn0):.2e} "
             f"of entering) cg blocks {step.cg.blocks} (last solve) launches {counts} = wrapper calls "
             f"- captured + replays x per replay: {fac}")
-        if not all(counts[k] > 0 for k in ("j2_radial_return", "banded_take_ell", "banded_take_csr")):
-            raise AssertionError("fused step: K1, K3 and K4 must each launch on the fused path")
+        if not all(counts[k] > 0 for k in ("j2_radial_return", "banded_take_ell", "banded_take_csr",
+                                            "coarse_restrict", "coarse_prolong")):
+            raise AssertionError("fused step: K1, K3, K4 and the coarse kernels must each launch on the fused path")
         if not float(rn) <= 1e-10 * float(rn0):
             raise AssertionError("fused step: a load step did not converge")
     p = states[0]["p"].reshape(-1).cpu()
@@ -3059,6 +3145,7 @@ def main():
     j2_worst = phase_j2()
     law_worst, law_timed = phase_law()
     takes = phase_take(nx_full, OGDEN_TET_N)
+    coarse = phase_coarse(nx_full)
     phase_slice_cpu_vs_card()
     counts, grads, state, behavior, problem = phase_main(nx_full)
     phase_cg(problem)
@@ -3153,6 +3240,22 @@ def main():
         take_row("banded_take_csr", "csr", "dolfinx_materials_tpu/ops/banded_gather.py:188"),
         take_row("banded_take_ell", "ell", "dolfinx_materials_tpu/ops/banded_gather.py:268"),
     ]
+    paths = {"fused": fused_counts, "demo": demo_counts, "blocked": blocked_counts, "owed": owed_counts,
+             "dist": dist_counts, "cards": cards_counts}
+    for name in ("coarse_restrict", "coarse_prolong"):
+        row = coarse[(f64, name.split("_")[1])]
+        # [dist] and [cards] count per rank only the kernels of DIST_KERNELS
+        by_path = {k: c[name] for k, c in paths.items() if name in c}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "dolfinx_materials_tpu_torch/csrc/coarse_correction.cu",
+            "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "fused_launches_from": fused_factors[name], "max_rel_err": row["err"], "ms": row["call"],
+            "device_ms": row["device"], "host_us": row["host"], "plain_ms": row["plain"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1], "library_ms": None,
+            # the whole correction (both kernels) against the plain path it replaced
+            "pair_device_ms": coarse[(f64, "pair")]["device"],
+            "replaced_path_device_ms": coarse[(f64, "pair")]["parent_device"],
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("j2_radial_return.cu", "banded_take.cu")
+SOURCES = ("j2_radial_return.cu", "banded_take.cu", "coarse_correction.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no multiply and add fused into one FMA. The compiler fuses by
 # its own heuristics, which differ between instantiations of one template

@@ -50,6 +50,7 @@ from .. import resolve_device
 from ..fem.forms import mixed_tangent_dtype
 from ..ops import banded_gather as bg
 from ..ops import j2_cuda
+from ..ops.coarse_correction import coarse_prolong, coarse_restrict, plan_aggregates
 from ..ops.banded_gather import fixed_sum, gather_map, plan_fixed_sum
 from ..state import _slices
 from ..utils.timers import count, timer
@@ -301,7 +302,7 @@ def _signature(tree):
 #: the kernel wrappers a CG block may launch: a capture records what they
 #: were called for, and each replay launches that again without calling them
 _COUNTED = (bg.banded_take_ell, bg.banded_take_csr, j2_cuda.j2_radial_return,
-            j2_cuda.j2_radial_return_factored)
+            j2_cuda.j2_radial_return_factored, coarse_restrict, coarse_prolong)
 
 
 def _read(value, kind=float):
@@ -725,6 +726,8 @@ def make_sharded_newton_step_general(
         pw, Wp1 = tables(pw_np), tables(Wp1_np)
         comp = np.arange(nc)[None, :]
         restrict_target = np.concatenate([parents_np[:, 0:1] * nc + comp, parents_np[:, 1:2] * nc + comp])
+        # the restriction as a padded gather and a row sum
+        restrict_map = torch.as_tensor(gather_map(restrict_target, ncoarse), device=device)
         for term in terms:
             vert = np.maximum(vid[term.dofmap_np[:, : nvloc * nc : nc] // nc], 0)
             term.coarse_plan = _coarse_plan(vert[:, :, None] * nc + comp[None], ncoarse, device)
@@ -738,9 +741,8 @@ def make_sharded_newton_step_general(
                 labels[np.unique(term.dofmap_np // nc)] = i
         ncoarse, agg_np, W_np = _coord_agg_modes(space, pc_boxes, modes=coarse_modes, labels=labels)
         nmodes = W_np.shape[2]
-        agg_node = torch.as_tensor(agg_np, dtype=torch.int64, device=device)
+        aggs = plan_aggregates(agg_np, nc, nmodes, device=device)
         W_node = tables(W_np)
-        restrict_target = agg_np[:, None].astype(np.int64) * nmodes + np.arange(nmodes)[None, :]
         for term in terms:
             nodes = term.dofmap_np[:, :: term.ncomp] // nc
             ci = agg_np[nodes].astype(np.int64)[:, :, None] * nmodes + np.arange(nmodes)[None, None, :]
@@ -748,10 +750,6 @@ def make_sharded_newton_step_general(
             term.W = {dt: _rows(w, term.lo, term.hi, w.new_zeros(())) for dt, w in tables(W_np[nodes]).items()}
     else:
         ncoarse = 0
-    if two_level:
-        # a few hundred terms a coarse dof: a padded gather and a row sum,
-        # where one thread an output would walk each list alone
-        restrict_map = torch.as_tensor(gather_map(restrict_target, ncoarse), device=device)
 
     zero_of = {}
 
@@ -826,25 +824,28 @@ def make_sharded_newton_step_general(
         As = Ac * sc[:, None] * sc[None, :]
         As = 0.5 * (As + As.T)
         Ai = torch.linalg.inv(As)
-        Ai = 0.5 * (Ai + Ai.T)
-        return Ai * sc[:, None] * sc[None, :]
+        Ai = 0.5 * (Ai + Ai.T) * sc[:, None] * sc[None, :]
+        # the aggregate route's kernel on the card reads Ac_inv by rows; the
+        # inverse comes back column-major, and the p1 route and the plain
+        # versions on the CPU keep that layout (their products round by it)
+        return Ai.contiguous() if Ai.is_cuda and not p1 else Ai
 
     def restrict(r0):
+        if not p1:
+            return coarse_restrict(r0, aggs, W_node[r0.dtype])
         rn = r0.reshape(nnodes, nc)
-        if p1:
-            pwc = pw[r0.dtype]
-            parts = [(rn * pwc[:, :1]).reshape(-1), (rn * pwc[:, 1:]).reshape(-1)]
-        else:  # elementwise: an einsum here runs as a batched product of 2x2s
-            parts = [(rn[:, :, None] * W_node[r0.dtype]).sum(dim=1).reshape(-1)]
+        pwc = pw[r0.dtype]
+        parts = [(rn * pwc[:, :1]).reshape(-1), (rn * pwc[:, 1:]).reshape(-1)]
         return torch.cat(parts + [r0.new_zeros(1)])[restrict_map].sum(dim=1)
 
-    def prolong(wc):
-        if p1:
-            wn = wc.reshape(-1, nc)
-            pwc = pw[wc.dtype]
-            return (pwc[:, :1] * wn[parents[:, 0]] + pwc[:, 1:] * wn[parents[:, 1]]).reshape(-1)
-        W = W_node[wc.dtype]
-        return (W * wc.reshape(-1, W.shape[2])[agg_node][:, None, :]).sum(dim=2).reshape(-1)
+    def prolong(rc, Ac_inv):
+        """``P Ac_inv rc`` in full (ndofs,)."""
+        if not p1:
+            return coarse_prolong(rc, Ac_inv, aggs, W_node[rc.dtype])
+        wc = Ac_inv @ rc
+        wn = wc.reshape(-1, nc)
+        pwc = pw[wc.dtype]
+        return (pwc[:, :1] * wn[parents[:, 0]] + pwc[:, 1:] * wn[parents[:, 1]]).reshape(-1)
 
     # ---- the CG operands and its two functions ----------------------------
     def Av(ops, v):
@@ -863,18 +864,22 @@ def make_sharded_newton_step_general(
             z = r / ops["diag"]
         else:  # the scaled operator's unit diagonal
             z = r
-        if "Ac_inv" in ops:
-            s_inv = ops.get("s_inv")
-            r0 = torch.where(mask, zero(r.dtype), r)
-            if s_inv is not None:
-                r0 = r0 * s_inv
-            # split dofs: each rank restricts its slice, the sums meet
-            rc = ranks.sum(restrict(embed(r0))) if shard_dofs else restrict(r0)
-            corr = mine(prolong(ops["Ac_inv"] @ rc))
-            if s_inv is not None:
-                corr = corr * s_inv
-            z = z + torch.where(mask, zero(r.dtype), corr)
-        return z
+        if "Ac_inv" not in ops:
+            return z
+        s_inv = ops.get("s_inv")
+        if not (p1 or shard_dofs):  # two kernels, the mask, scaling and add inside
+            W = W_node[r.dtype]
+            rc = coarse_restrict(r, aggs, W, mask, s_inv)
+            return coarse_prolong(rc, ops["Ac_inv"], aggs, W, z, mask, s_inv)
+        r0 = torch.where(mask, zero(r.dtype), r)
+        if s_inv is not None:
+            r0 = r0 * s_inv
+        # split dofs: each rank restricts its slice, the sums meet
+        rc = ranks.sum(restrict(embed(r0))) if shard_dofs else restrict(r0)
+        corr = mine(prolong(rc, ops["Ac_inv"]))
+        if s_inv is not None:
+            corr = corr * s_inv
+        return z + torch.where(mask, zero(r.dtype), corr)
 
     cg = MaskedCG(Av, M, n_cg, cg_rtol, dot=dot, group=ranks.group)
 

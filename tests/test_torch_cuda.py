@@ -12,7 +12,12 @@ that start at their storage's first element and at its second; their two
 layouts, and their stress and state, bitwise to each other (one return map
 in one template); the take kernels to 1e-13 (f64) / 1e-6 (f32) of
 the plain version, and bitwise to each other and to
-``compact_take_reference`` (all three add each output's entries in one order).
+``compact_take_reference`` (all three add each output's entries in one order);
+the two coarse-correction kernels to 1e-13 (f64) / 1e-5 (f32) of the plain
+version's largest value: both sum a few hundred dofs an aggregate and a row
+of ~1,000 coarse values, in another order (the kernels: strided partial sums
+and a shuffle tree; the plain version: node values, a row sum, a matrix
+product), and bitwise to themselves from run to run.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ import dolfinx_materials_tpu_torch as tdm
 from dolfinx_materials_tpu_torch import fem, models
 from dolfinx_materials_tpu_torch.fem.forms import mandel_strain_2d
 from dolfinx_materials_tpu_torch.ops import banded_gather as bg
+from dolfinx_materials_tpu_torch.ops import coarse_correction as cc
 from dolfinx_materials_tpu_torch.ops import j2_cuda
 from dolfinx_materials_tpu_torch.ops.j2_fast import make_j2_batched_update
 
@@ -394,6 +400,93 @@ def test_plate_steps_card_match_cpu(card):
 
 
 # ------------------------------------------------- fused step and its pieces
+def coarse_space(name):
+    if name == "plate":  # the plate cell's 128x256 P2 space
+        return fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (128, 256), "quad"), 2, (2,))
+    return fem.FunctionSpace(fem.create_unit_cube(8, 8, 8, "tetrahedron"), 2, (3,))  # a P2 tet block
+
+
+def coarse_case(card, dtype, modes, pc_boxes, space="plate", seed=5):
+    """``space`` cut into ``pc_boxes`` boxes a side, its aggregate plan on
+    the card, the mode weights and seeded operands: r, z, s_inv, a mask on a
+    fifth of the dofs, an SPD Ac_inv."""
+    from dolfinx_materials_tpu_torch.parallel.coarse import _coord_agg_modes
+
+    V = coarse_space(space)
+    ncoarse, agg_np, W_np = _coord_agg_modes(V, pc_boxes, modes=modes)
+    rng = np.random.default_rng(seed)
+    n = V.num_dofs
+    G = rng.standard_normal((ncoarse, ncoarse))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)  # noqa: E731
+    ops = dict(r=t(rng.standard_normal(n)), z=t(rng.standard_normal(n)), s_inv=t(rng.uniform(0.5, 2.0, n)),
+               mask=torch.as_tensor(rng.random(n) < 0.2, device=card),
+               Ac_inv=t(G @ G.T / ncoarse + np.eye(ncoarse)), W=t(W_np))
+    return cc.plan_aggregates(agg_np, V.ncomp, W_np.shape[2], device=card), ops
+
+
+# the plate's coarse space (22 boxes: 2 or 3 modes, 968 or 1,452 coarse dofs,
+# 16-byte rows of Ac_inv), one of 147 coarse dofs (rows of odd length: 8-byte
+# loads), and a 3D block's (3 or 6 modes, 375 or 1,296 coarse dofs)
+COARSE = [("trans", 22, "plate"), ("rbm", 22, "plate"), ("rbm", 7, "plate"), ("trans", 5, "tets"),
+          ("rbm", 6, "tets")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("modes,pc_boxes,space", COARSE)
+def test_coarse_kernels_match_plain(card, dtype, modes, pc_boxes, space):
+    """Restriction and prolongation with the mask, the scaling and the add
+    to z (the fused step's call), and without them (the split-dof route's):
+    one launch each, within the summation-order tolerance of the plain
+    version, bitwise equal on a second call."""
+    plan, o = coarse_case(card, dtype, modes, pc_boxes, space)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    for mask, s_inv, z in ((o["mask"], o["s_inv"], o["z"]), (None, None, None)):
+        before = (cc.coarse_restrict.launches, cc.coarse_prolong.launches, cc.coarse_restrict.f32_launches)
+        rc = cc.coarse_restrict(o["r"], plan, o["W"], mask, s_inv)
+        out = cc.coarse_prolong(rc, o["Ac_inv"], plan, o["W"], z, mask, s_inv)
+        f32 = dtype == torch.float32
+        assert (cc.coarse_restrict.launches, cc.coarse_prolong.launches,
+                cc.coarse_restrict.f32_launches) == (before[0] + 1, before[1] + 1, before[2] + f32)
+        rc_ref = cc.coarse_restrict_reference(o["r"], plan, o["W"], mask, s_inv)
+        # the same rc into both prolongations: each kernel is held alone
+        out_ref = cc.coarse_prolong_reference(rc, o["Ac_inv"], plan, o["W"], z, mask, s_inv)
+        torch.cuda.synchronize()
+        assert float((rc - rc_ref).abs().max()) <= tol * float(rc_ref.abs().max())
+        assert float((out - out_ref).abs().max()) <= tol * float(out_ref.abs().max())
+        if mask is not None:
+            assert torch.equal(out[o["mask"]], o["z"][o["mask"]])
+        assert torch.equal(rc, cc.coarse_restrict(o["r"], plan, o["W"], mask, s_inv))
+        assert torch.equal(out, cc.coarse_prolong(rc, o["Ac_inv"], plan, o["W"], z, mask, s_inv))
+
+
+def test_coarse_wrappers_raise_instead_of_falling_back(card):
+    plan, o = coarse_case(card, torch.float64, "trans", 22)
+    r, W, A = o["r"], o["W"], o["Ac_inv"]
+    rc = cc.coarse_restrict(r, plan, W)
+    before = (cc.coarse_restrict.launches, cc.coarse_prolong.launches)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        cc.coarse_restrict(r.half(), plan, W.half())
+    with pytest.raises(ValueError, match="expected W"):
+        cc.coarse_restrict(r, plan, W.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.coarse_restrict(torch.stack([r, r], dim=1)[:, 0], plan, W)
+    with pytest.raises(ValueError, match="expected r"):
+        cc.coarse_restrict(r[:-1], plan, W)
+    with pytest.raises(ValueError, match="expected mask"):
+        cc.coarse_restrict(r, plan, W, mask=o["mask"].double())
+    with pytest.raises(ValueError, match="expected Ac_inv"):
+        cc.coarse_prolong(rc, A[:-1], plan, W)
+    with pytest.raises(ValueError, match="contiguous"):
+        cc.coarse_prolong(rc, A.T, plan, W)
+    with pytest.raises(ValueError, match="z on cpu"):
+        cc.coarse_prolong(rc, A, plan, W, z=o["z"].cpu())
+    cpu_plan = cc.plan_aggregates(np.zeros(4, np.int64), 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="plan on cpu"):
+        cc.coarse_restrict(torch.zeros(8, dtype=torch.float64, device=card), cpu_plan,
+                           torch.zeros((4, 2, 2), dtype=torch.float64, device=card))
+    assert (cc.coarse_restrict.launches, cc.coarse_prolong.launches) == before
+
+
 def test_fixed_sum_is_one_launch_and_bitwise(card):
     """The fixed-order sum (the CSR take kernel over a SumPlan): one launch,
     bitwise equal to the CSR take's plain version, to the CPU's plain
@@ -480,7 +573,8 @@ def test_fused_step_graph_counts_replayed_launches(card):
     from dolfinx_materials_tpu_torch.fem.bc import combine_bcs
     from dolfinx_materials_tpu_torch.parallel import device_mesh, make_sharded_newton_step_general
 
-    names = ("banded_take_ell", "banded_take_csr")
+    wrappers = (bg.banded_take_ell, bg.banded_take_csr, cc.coarse_restrict, cc.coarse_prolong)
+    names = tuple(w.__name__ for w in wrappers)
     out = {}
     for graph in (True, False):
         V = fem.FunctionSpace(fem.create_rectangle((0.0, 0.0), (1.0, 2.0), (16, 32), "quad"), 2, (2,))
@@ -497,10 +591,10 @@ def test_fused_step_graph_counts_replayed_launches(card):
         step.cg.graph = graph
         mask, vals = combine_bcs(bcs, V.num_dofs)
         u0 = np.stack([np.zeros(V.num_nodes), 0.0075 * V.node_coords[:, 1] / 2.0], axis=1).reshape(-1)
-        counts = [bg.banded_take_ell.launches, bg.banded_take_csr.launches]
+        counts = [w.launches for w in wrappers]
         u, _, _, _, (_, ncg) = step(u0, pad([mat.data_manager.s0.internal]), mask, vals)
         torch.cuda.synchronize()
-        out[graph] = u, ncg, [bg.banded_take_ell.launches - counts[0], bg.banded_take_csr.launches - counts[1]]
+        out[graph] = u, ncg, [w.launches - c for w, c in zip(wrappers, counts)]
         if graph:
             (g,) = step.cg._graphs.values()
             block = [g["recorded"][n][0] for n in names]
