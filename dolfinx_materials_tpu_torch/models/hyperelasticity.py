@@ -6,6 +6,14 @@ tangent ``dPK1/dF`` by forward over reverse, with no hand-derived
 fourth-order tensor. Per point, stretch powers use the eigh-free matrix
 functions of ``ops/matfun.py`` (differentiable at F = I); the whole-batch
 Ogden path works on the tuple algebra of ``ops/matfun_fm.py``.
+
+The whole-batch Ogden calls are scopes of the port's tracer
+(``utils/timers.py``): ``hyperelastic: constitutive update`` (PK1 and the
+tangent) and ``hyperelastic: flux`` (PK1 alone, the line-search trials),
+with the counters ``hyperelastic: points`` (the batch's points, each call),
+``hyperelastic: padded points`` (the identity points that pad the tangent's
+last chunk) and ``hyperelastic: chunks`` (the tangent chunks
+differentiated).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from torch.func import grad
 
 from ..ops import matfun, tensors
 from ..ops import matfun_fm as fm
+from ..utils.timers import count, timer
 from .base import FiniteStrainBehavior
 
 
@@ -85,8 +94,11 @@ def _chunked(fn, Fv, chunk):
     ``fn(F (m, 9)) -> tuple of (m, k) tensors``."""
     n = Fv.shape[0]
     if n <= chunk:
+        count("hyperelastic: chunks")
         return fn(Fv)
     pad = (-n) % chunk
+    count("hyperelastic: chunks", (n + pad) // chunk)
+    count("hyperelastic: padded points", pad)
     if pad:
         eye = torch.eye(3, dtype=Fv.dtype, device=Fv.device).reshape(1, 9).expand(pad, 9)
         Fv = torch.cat([Fv, eye])
@@ -108,14 +120,20 @@ class Ogden(HyperelasticBehavior):
     ``tangent_mode``: "c6" (default), six Hessian seeds of S(C6) = 2 dW/dC in
     Mandel coordinates and the closed-form wrap dP = dF S + F (H : dC); "f9",
     nine seeds of dPK1/dF. ``tangent_chunk`` points are differentiated at a
-    time.
+    time: 2^17 takes a mesh of up to 131,072 points (the 84,000 of the P2-tet
+    block at N = 10) in one chunk, unpadded; each chunk costs the same host
+    launches whatever its size.
     """
 
     #: ||X||_F below which (X = C/c - I, c = tr(C)/3) the near-spherical
     #: series replaces the Cardano branch per point
     _spherical_switch = 0.15
+    #: 1 - |r| (r = det X / (2 (||X||^2 / 6)^(3/2)) = cos 3 theta) below which
+    #: the coincident-pair series replaces the Cardano branch per point: two
+    #: eigenvalues of C within ~1e-2 of their spread
+    _pair_switch = 1e-3
 
-    def __init__(self, mu=(27778.0 * 28.8 / 2,), alpha=(28.8,), K=69444444.0, tangent_chunk=65536,
+    def __init__(self, mu=(27778.0 * 28.8 / 2,), alpha=(28.8,), K=69444444.0, tangent_chunk=131072,
                  tangent_mode="c6"):
         self.mu = tuple(mu)
         self.alpha = tuple(alpha)
@@ -186,6 +204,27 @@ class Ogden(HyperelasticBehavior):
         )
         lams = fm.t_eigvals_sym(C_safe)  # squared stretches
 
+        # two coincident eigenvalues: Cardano's r = cos 3 theta reaches +-1,
+        # where its clamped arccos keeps the energy and its gradient but not
+        # the Hessian. With X's eigenvalues 2 rho cos(theta + 2 pi k / 3), the
+        # simple one is x_s = 2 sgn(r) rho u (u = cos(theta / 3), the root
+        # near 1 of 4u^3 - 3u = |r|, by Newton from 1) and the pair's are m -
+        # 1 +- d with m = 1 - x_s / 2, d^2 = 3 rho^2 (1 - u^2): its stretch
+        # powers (m + d)^s + (m - d)^s = 2 m^s sum_k binom(s, 2k) (d/m)^2k
+        # are smooth in C. Points off the branch see a dummy pair.
+        rho2 = torch.where(near, torch.ones_like(p2), p2 / 6.0)
+        r = torch.where(near, torch.zeros_like(e3), e3) / (2.0 * rho2 * torch.sqrt(rho2))
+        pair = ~near & (r.abs() > 1.0 - self._pair_switch)
+        ra = torch.where(pair, r.abs(), torch.ones_like(r))
+        rho = torch.where(pair, torch.sqrt(rho2), torch.full_like(r, 0.1))
+        u = torch.ones_like(ra)
+        for _ in range(4):
+            u = u - (4.0 * u**3 - 3.0 * u - ra) / (12.0 * u * u - 3.0)
+        x_s = 2.0 * torch.where(r < 0, -rho, rho) * u
+        m = 1.0 - 0.5 * x_s
+        q = 3.0 * rho * rho * (1.0 - u * u) / (m * m)
+        pair = pair & (q < 0.01)
+
         for mu_p, a_p in zip(self.mu, self.alpha):
             s_exp = 0.5 * a_p
             tr_a_cardano = sum(torch.clamp(lam, min=1e-12) ** s_exp for lam in lams)
@@ -196,7 +235,13 @@ class Ogden(HyperelasticBehavior):
             for k in range(1, n_terms + 1):
                 coef = coef * (s_exp - (k - 1)) / k
                 tr_exp = tr_exp + coef * psums[k]
-            tr_a = torch.where(near, c**s_exp * tr_exp, tr_a_cardano)
+            tr_pair, coef, qk = 2.0 * torch.ones_like(q), 1.0, torch.ones_like(q)
+            for k in range(1, 9):  # ~1e-16 at q = 0.01 for |alpha| <= ~30
+                coef = coef * (s_exp - (2 * k - 2)) * (s_exp - (2 * k - 1)) / ((2 * k - 1) * 2 * k)
+                qk = qk * q
+                tr_pair = tr_pair + 2.0 * coef * qk
+            tr_pair = (1.0 + x_s) ** s_exp + m**s_exp * tr_pair
+            tr_a = torch.where(near, c**s_exp * tr_exp, torch.where(pair, c**s_exp * tr_pair, tr_a_cardano))
             W = W + 2.0 * mu_p / a_p**2 * (J ** (-a_p / 3.0) * tr_a - 3.0)
         return W
 
@@ -211,6 +256,11 @@ class Ogden(HyperelasticBehavior):
         Only H needs AD (6 seeds of the 6-dim map S(C6)); dC per F-seed and
         the wraps are closed-form elementwise products. "f9": 9 seeds of
         dPK1/dF."""
+        with timer("hyperelastic: constitutive update", device=Fv.device):
+            count("hyperelastic: points", Fv.shape[0])
+            return self._update(Fv, state)
+
+    def _update(self, Fv, state):
         if self.tangent_mode == "c6":
             pk1, Ct = _chunked(lambda Fc: self._c6_chunk(Fc, True), Fv, self.tangent_chunk)
             return pk1, Ct, state
@@ -226,9 +276,11 @@ class Ogden(HyperelasticBehavior):
         """PK1 alone, ``(PK1 (n, 9), state)``: the same arithmetic as
         :meth:`batched_update`'s PK1 without the tangent (line-search
         trials)."""
-        if self.tangent_mode == "c6":
-            return self._c6_chunk(Fv, False)[0], state
-        return _gradient(self.strain_energy_batched, Fv, False)[0], state
+        with timer("hyperelastic: flux", device=Fv.device):
+            count("hyperelastic: points", Fv.shape[0])
+            if self.tangent_mode == "c6":
+                return self._c6_chunk(Fv, False)[0], state
+            return _gradient(self.strain_energy_batched, Fv, False)[0], state
 
     def _c6_chunk(self, Fc, tangent):
         """PK1 and, with ``tangent``, the factored-through-C tangent of one

@@ -3,7 +3,12 @@ finite-strain path of its ``Material`` against the JAX package's, in float64
 on the CPU, on deformation gradients made from a numpy seed. PK1 and the
 81-wide tangent are held to 1e-12 of their largest entry (the tolerance of
 tests/test_ogden_c6_tangent.py); the Ogden PK2 is also held against the
-MFront formula to 1e-9, as tests/test_ogden_mfront_parity.py does."""
+MFront formula to 1e-9, as tests/test_ogden_mfront_parity.py does. At the
+state with two coincident stretches the whole-batch Ogden tangent is held
+to the Hessian of the JAX package's per-point energy (``logm``/``expm``, no
+eigenvalues) instead: there the JAX package's whole-batch path, whose
+clamped Cardano eigenvalues lose the energy's Hessian, is 3 % of the
+tangent's scale off, and the port's coincident-pair series is not."""
 
 import numpy as np
 import pytest
@@ -13,6 +18,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import dolfinx_materials_tpu as jdm  # noqa: E402
 from dolfinx_materials_tpu import models as jmodels  # noqa: E402
+from dolfinx_materials_tpu.ops import tensors as jtensors  # noqa: E402
 
 import dolfinx_materials_tpu_torch as tdm  # noqa: E402
 from dolfinx_materials_tpu_torch import models as tmodels  # noqa: E402
@@ -41,6 +47,18 @@ def close(a, b, rtol=1e-12):
     np.testing.assert_allclose(a, b, rtol=0, atol=rtol * np.abs(b).max())
 
 
+def close_ogden_tangent(model, Fv, Ct, Cj):
+    """An Ogden tangent against the JAX package's whole-batch one on every
+    row of :func:`deformations` but the last, the coincident pair, which is
+    held to the Hessian of the JAX package's per-point energy (the same
+    9-vector order)."""
+    Ct = np.asarray(Ct)
+    close(Ct[:-1], np.asarray(Cj)[:-1])
+    per_point = jmodels.Ogden(mu=model.mu, alpha=model.alpha, K=model.K)
+    H = jax.hessian(lambda v: per_point.strain_energy(jtensors.nonsym_to_mat(v)))(jnp.asarray(Fv[-1]))
+    close(Ct[-1:], np.asarray(H).reshape(1, 81))
+
+
 def ogden(pkg, **kw):
     return pkg.Ogden(mu=(MU_MF * ALPHA / 2.0,), alpha=(ALPHA,), K=K_MF, **kw)
 
@@ -55,11 +73,12 @@ BATCHED = {
 @pytest.mark.parametrize("name", sorted(BATCHED))
 def test_batched_update_matches_jax(name):
     Fv = deformations()
-    pt, Ct, _ = BATCHED[name](tmodels).batched_update(torch.tensor(Fv), {}, 0.0)
+    model = BATCHED[name](tmodels)
+    pt, Ct, _ = model.batched_update(torch.tensor(Fv), {}, 0.0)
     pj, Cj, _ = BATCHED[name](jmodels).batched_update(jnp.asarray(Fv), {}, 0.0)
     assert tuple(Ct.shape) == (Fv.shape[0], 81)
     close(pt, pj)
-    close(Ct, Cj)
+    close_ogden_tangent(model, Fv, Ct, Cj)
 
 
 def test_c6_matches_f9_and_chunked_matches_one_chunk():
@@ -135,7 +154,10 @@ def test_material_integrate_matches_jax(name):
     pj, _, Cj = mj.integrate(jnp.asarray(Fv))
     assert tuple(Ct.shape) == (Fv.shape[0], 81)
     close(pt, pj)
-    close(Ct, Cj)
+    if name == "ogden":
+        close_ogden_tangent(mt.behavior, Fv, Ct, Cj)
+    else:
+        close(Ct, Cj)
     fo, _ = mt.integrate_flux_only(Fv)
     close(fo, pj)
 
